@@ -3,16 +3,25 @@
 Usage: python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit) if it fails:
-  1. build the CUDA kernels from macarons_tpu_torch/csrc;
-  2. hold each kernel against its plain PyTorch twin on the card;
-  3. drive the main path: an nbv scene-exploration trajectory at the default
-     test config's widths on a generated synthetic scene, with random SCONE
-     weights from a seed, and check its outputs;
+  1. build the CUDA kernels from macarons_tpu_torch/csrc (one nvcc per
+     source, all started together);
+  2. hold each kernel against its plain PyTorch twin on the card, at edge
+     cases;
+  3. drive the nbv scene-exploration trajectory at the default test config's
+     widths on the generated synthetic scene synth_00 (232 faces: scan
+     capture), with random SCONE weights from a seed, and check its outputs;
   4. score the trajectory's last candidates again on the card and on the CPU
      (the plain twins) with the same Monte-Carlo sample: the gains agree;
-  5. print the kernel table (JSON), the card's name and power limit, and the
+  5. scene-scale capture: the same trajectory on synth_00 subdivided 4 times
+     (59,392 faces: tiled capture through kernels B1 and B2), then one move's
+     frames rasterized on the card and on the CPU (the plain twins): the
+     same face ids;
+  6. time each kernel at the shapes of the scene-scale path, and hold it
+     against its twin there;
+  7. print the kernel table (JSON), the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
-Needs CUDA; never falls back to the CPU.
+Each trajectory runs with every kernel's launch count set to 0 just before
+it and read just after. Needs CUDA; never falls back to the CPU.
 """
 
 import copy
@@ -23,19 +32,25 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from macarons_tpu_torch.config import load_params, normalize_test_config
+from macarons_tpu_torch.data.mesh_io import Mesh, load_obj, save_obj
 from macarons_tpu_torch.data.scenes import SceneDataset
 from macarons_tpu_torch.data.synthetic_suite import generate_suite
 from macarons_tpu_torch.models.macarons import (
     create_macarons_model,
     init_macarons_weights,
 )
+from macarons_tpu_torch.ops import rasterizer as rast
 from macarons_tpu_torch.ops.cuda import sh_visibility as shv
+from macarons_tpu_torch.ops.cuda import tile_raster as tr
 from macarons_tpu_torch.ops.cuda.build import BUILD_DIR
+from macarons_tpu_torch.ops.geometry import FoVCamera, look_at_view_transform
+from macarons_tpu_torch.scene.camera import get_camera_RT
 from macarons_tpu_torch.scene.memory import Memory
 from macarons_tpu_torch.testers.scene import compute_trajectory
 from macarons_tpu_torch.trainers.train_macarons import (
@@ -47,10 +62,51 @@ from macarons_tpu_torch.utils.device import make_generator, resolve_device
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 N_POSES = 5
+SCENE_LEVELS = 4  # 232 * 4**4 = 59,392 faces
 ATOL = 1e-4
+RASTER_ATOL = 1e-5  # zbuf and barycentrics; face ids and slots identical
+TILE = 16
+KERNELS = {"rasterize_pairs": tr.rasterize_pairs,
+           "rasterize_tiles": tr.rasterize_tiles,
+           "sh_visibility": shv.sh_visibility}
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+
+
+def subdivide(mesh: Mesh, levels: int) -> Mesh:
+    """Midpoint subdivision: each level splits every face into four at its
+    edge midpoints (shared between the two faces of an edge), keeping the
+    winding; vertex colours are interpolated. Face i's children are faces
+    4i .. 4i + 3."""
+    verts, faces, colors = mesh.verts, mesh.faces, mesh.vert_colors
+    for _ in range(levels):
+        F = len(faces)
+        edges = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]],
+                                faces[:, [2, 0]]])
+        uniq, inv = np.unique(np.sort(edges, axis=1), axis=0,
+                              return_inverse=True)
+        ab, bc, ca = len(verts) + inv.reshape(3, F)
+        verts = np.concatenate([verts, (verts[uniq[:, 0]]
+                                        + verts[uniq[:, 1]]) / 2])
+        if colors is not None:
+            colors = np.concatenate([colors, (colors[uniq[:, 0]]
+                                              + colors[uniq[:, 1]]) / 2])
+        a, b, c = faces.T
+        faces = np.stack([np.stack(f, axis=1) for f in
+                          ((a, ab, ca), (ab, b, bc), (ca, bc, c),
+                           (ab, bc, ca))], axis=1).reshape(-1, 3)
+    return Mesh(verts.astype(np.float32), faces.astype(np.int32),
+                None if colors is None else colors.astype(np.float32))
+
+
+def scene_scale_suite(root, levels):
+    """The synthetic suite's synth_00 under ``root`` with its mesh
+    subdivided ``levels`` times (232 faces times 4 ** levels)."""
+    root = generate_suite(root, n_scenes=1)
+    path = os.path.join(root, "synth_00", "mesh.obj")
+    save_obj(path, subdivide(load_obj(path), levels))
+    return root
 
 
 def fail(msg):
@@ -99,11 +155,22 @@ def sh_inputs(gen, B, C, L, P=4):
     return pts, harm, X_cam
 
 
+def reset_counts():
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
 def phase_build():
     t0 = time.perf_counter()
-    shv.build(verbose=True)
-    print(f"[build] sh_visibility built in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        for job in [pool.submit(m.build, verbose=True) for m in (shv, tr)]:
+            job.result()
+    print(f"[build] sh_visibility and tile_raster built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def phase_kernels(gen):
@@ -159,24 +226,29 @@ def smoke_params(root):
     return train
 
 
-def phase_trajectory(gen):
+def phase_trajectory(gen, label, levels, needs):
+    """Drive N_POSES nbv poses on synth_00 subdivided ``levels`` times, with
+    every launch count set to 0 just before and read just after; fail unless
+    each kernel in ``needs`` launched. Returns what later phases use."""
     dev = resolve_device("cuda")
+    tag = f"[{label}]"
     with tempfile.TemporaryDirectory(prefix="chip_smoke_",
                                      dir=_work_dir()) as tmp:
-        root = generate_suite(os.path.join(tmp, "scenes"), n_scenes=1)
+        root = scene_scale_suite(os.path.join(tmp, "scenes"), levels)
         params = smoke_params(root)
-        print("[trajectory] widths: image {}x{}, proxies {}, seq_len {}, "
-              "k_for_knn {}, harmonics {}, GT points {}".format(
-                  params.image_height, params.image_width,
-                  params.n_proxy_points, params.seq_len, params.k_for_knn,
-                  params.n_harmonics, params.n_gt_surface_points), flush=True)
+        print(f"{tag} widths: image {params.image_height}x"
+              f"{params.image_width}, proxies {params.n_proxy_points}, "
+              f"seq_len {params.seq_len}, k_for_knn {params.k_for_knn}, "
+              f"harmonics {params.n_harmonics}, GT points "
+              f"{params.n_gt_surface_points}, interpolation steps "
+              f"{params.n_interpolation_steps}", flush=True)
         item = SceneDataset(root)[0]
         t0 = time.perf_counter()
         model = init_macarons_weights(create_macarons_model(params, dev), gen)
         scene = setup_scene(params, item, gen, dev)
         rt = MacaronsRuntime(params, model, scene.cfg, scene.cell_table, dev)
         torch.cuda.synchronize()
-        print(f"[trajectory] scene setup {time.perf_counter() - t0:.2f} s, "
+        print(f"{tag} scene setup {time.perf_counter() - t0:.2f} s, "
               f"{scene.mesh.faces.shape[0]} faces, cell table "
               f"{scene.cell_table.proxy_slots.shape}", flush=True)
 
@@ -203,7 +275,7 @@ def phase_trajectory(gen):
         rs = np.random.default_rng(params.get("random_seed", 42))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        shv.sh_visibility.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         traj = compute_trajectory(
             rt, scene, memory, memory_path, gen, rs, n_poses=N_POSES,
@@ -212,14 +284,14 @@ def phase_trajectory(gen):
             policy="nbv", on_pose=on_pose)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = shv.sh_visibility.launches
+        counts = read_counts()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     def span(i, a, b):
         return events[(i, a)].elapsed_time(events[(i, b)])
 
     for i in range(N_POSES):
-        print(f"[trajectory] pose {i}: decision "
+        print(f"{tag} pose {i}: decision "
               f"{span(i, 'decision', 'capture'):.2f} ms (depth + mapping "
               f"{span(i, 'decision', 'field'):.2f}, occupancy field "
               f"{span(i, 'field', 'score'):.2f}, scoring "
@@ -227,9 +299,8 @@ def phase_trajectory(gen):
               f"{span(i, 'capture', 'done'):.2f} ms, coverage "
               f"{traj['coverage'][i + 1]:.4f}, candidates "
               f"{cand_shapes[i][0]}", flush=True)
-    print(f"[trajectory] {N_POSES} poses in {wall:.2f} s, peak device memory "
-          f"{peak_gib:.2f} GiB, sh_visibility launches {launches}",
-          flush=True)
+    print(f"{tag} {N_POSES} poses in {wall:.2f} s, peak device memory "
+          f"{peak_gib:.2f} GiB, launches {counts}", flush=True)
 
     cov = np.asarray(traj["coverage"])
     if len(gains_log) != N_POSES:
@@ -240,9 +311,141 @@ def phase_trajectory(gen):
         fail(f"coverage not finite and non-decreasing: {cov.tolist()}")
     if len({tuple(c) for c in traj["cam_idx"]}) < 2:
         fail("the camera never moved")
-    if launches <= 0:
-        fail("the trajectory never launched the sh_visibility kernel")
-    return launches, cand_shapes[0][0], params.seq_len, rt, model, calls[-1]
+    for name in needs:
+        if counts[name] <= 0:
+            fail(f"the {label} trajectory never launched the {name} kernel")
+    return dict(counts=counts, c_pad=cand_shapes[0][0], seq_len=params.seq_len,
+                rt=rt, model=model, call=calls[-1], traj=traj, scene=scene,
+                params=params)
+
+
+def hold_raster(name, kernel, plain, args):
+    """Launch a tile raster kernel and its plain twin on the same inputs:
+    identical face ids or slots, zbuf and barycentrics within RASTER_ATOL.
+    Returns the largest difference of the float outputs."""
+    out = kernel(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    if not torch.equal(out[1], ref[1]):
+        bad = int((out[1] != ref[1]).sum())
+        fail(f"{name}: {bad} face ids or slots differ from the plain twin")
+    err = max((float((a - b).abs().max()) if a.numel() else 0.0)
+              for a, b in zip((out[0], out[2], out[3]),
+                              (ref[0], ref[2], ref[3])))
+    if not err <= RASTER_ATOL:
+        fail(f"{name}: zbuf or barycentrics differ from the plain twin by "
+             f"{err}")
+    return err, float((out[1] >= 0).float().mean()) if out[1].numel() else 0
+
+
+def raster_args(f9, size, K_cap, pc):
+    """B1's and B2's arguments for the tiled path of faces f9 (N, 9, F), as
+    ops.rasterizer._rasterize_tiled builds them."""
+    H, W = size
+    TH, TW = rast._tiles(H, W, TILE)
+    pfv, pface, starts, counts, big = rast._pairlist_pairs(f9, size, TILE)
+    fv, valid, _ = rast._big_face_lists(f9, big, H, W, TILE)
+    b1 = (pfv, pface, starts, counts, TILE, TW, H, W, TH * TW, K_cap, pc)
+    b2 = (fv.contiguous(), valid.float(), valid.sum(-1).int(), TILE, TW, H,
+          W, TH * TW, 256, pc)
+    return b1, b2
+
+
+def edge_case_mesh(gen):
+    """2400 small faces and 200 random big ones around the origin, two ground
+    planes, a degenerate face, a face crossing the camera plane and coplanar
+    copies of 40 faces and of a plane; two cameras, the second looking past
+    most of it."""
+    dev = "cuda"
+    n = 2600
+    centres = torch.rand(n, 1, 3, device=dev, generator=gen) * 3 - 1.5
+    offsets = torch.randn(n, 3, 3, device=dev, generator=gen) * 0.08
+    offsets[2400:] = torch.rand(200, 3, 3, device=dev, generator=gen) * 3
+    extra = torch.tensor([[-3, -3, 0.2], [3, -3, 0.2], [0, 3, 0.2],
+                          [-3, 3, -0.2], [3, 3, -0.2], [0, -3, -0.2],
+                          [0, 0, 0], [1, 1, 1], [2, 2, 2],
+                          [0, 0, 4.0], [1, 0, 6.0], [0, 1, 6.0]], device=dev)
+    verts = torch.cat([(centres + offsets).reshape(-1, 3), extra])
+    faces = torch.arange(3 * n + 12, device=dev).reshape(-1, 3)
+    faces = torch.cat([faces, faces[100:140], faces[n:n + 1]])
+    eye = torch.tensor([[0.5, 1.0, 5.0], [4.0, 0.5, 2.0]], device=dev)
+    at = torch.tensor([[0.0, 0.0, 0.0], [6.0, 0.0, -2.0]], device=dev)
+    R, T = look_at_view_transform(eye, at)
+    return verts, faces, FoVCamera.create(R, T, zfar=40.0)
+
+
+def phase_raster_kernels(gen):
+    """B1 and B2 against their twins on the edge-case mesh: a padded tile
+    column (456 and 53 are not multiples of 16), empty tiles, K_cap overflow,
+    more big faces per tile than lanes, perspective correction on and off."""
+    verts, faces, cam = edge_case_mesh(gen)
+    f9 = rast.project_fv_batch(verts, faces, cam)
+    worst = {"rasterize_pairs": 0.0, "rasterize_tiles": 0.0}
+    for size, K_cap, pc in (((37, 53), 1024, True), ((37, 53), 128, True),
+                            ((37, 53), 128, False), ((256, 456), 1024, True),
+                            ((256, 456), 128, False)):
+        b1, b2 = raster_args(f9, size, K_cap, pc)
+        over = int((b1[3] > K_cap).sum())
+        for (name, kernel, plain), args in (
+                (("rasterize_pairs", tr.rasterize_pairs,
+                  tr.rasterize_pairs_plain), b1),
+                (("rasterize_tiles", tr.rasterize_tiles,
+                  tr.rasterize_tiles_plain), b2)):
+            err, cover = hold_raster(name, kernel, plain, args)
+            worst[name] = max(worst[name], err)
+            print(f"[kernel] {name} {size[0]}x{size[1]} K_cap {K_cap} "
+                  f"perspective {pc}: ids identical, max |kernel - plain| "
+                  f"{err:.3e}, covered {cover:.3f}, tiles over K_cap {over}",
+                  flush=True)
+    return worst
+
+
+def phase_scene_render(run):
+    """One move of the scene-scale trajectory rasterized on the card and on
+    the CPU through the tiled path (kernels vs plain twins). From the same
+    projected faces the face ids must be identical. From each device's own
+    projection (the matmuls round differently) a pixel may change face where
+    two faces tie within ulps: on the edges shared by the subdivided mesh's
+    coplanar neighbours. That share is printed and must stay below 1e-3."""
+    traj, scene, params = run["traj"], run["scene"], run["params"]
+    steps = params.n_interpolation_steps
+    X = torch.tensor(traj["X_cam"][1:1 + steps], device="cuda")
+    V = torch.tensor(traj["V_cam"][1:1 + steps], device="cuda")
+    R, T = get_camera_RT(X, V)
+    cam = FoVCamera.create(R, T, zfar=params.zfar)
+    size = (params.image_height, params.image_width)
+    f9 = rast.project_fv_batch(scene.verts_dev, scene.faces_dev, cam)
+    t0 = time.perf_counter()
+    card = rast._rasterize_tiled(f9, size, TILE, 1024, True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu = rast._rasterize_tiled(f9.cpu(), size, TILE, 1024, True)
+    t2 = time.perf_counter()
+    if not torch.equal(card.pix_to_face.cpu(), cpu.pix_to_face):
+        fail("the move's face ids differ between the card and the CPU")
+    err = max(float((a.cpu() - b).abs().max())
+              for a, b in zip(card[1:], cpu[1:]))
+    if not err <= RASTER_ATOL:
+        fail(f"the move's zbuf or barycentrics differ by {err}")
+    cpu_cam = FoVCamera(*(getattr(cam, f.name).cpu()
+                          for f in dataclasses.fields(cam)))
+    own = rast.rasterize(scene.verts_dev.cpu(), scene.faces_dev.cpu(),
+                         cpu_cam, size, method="tiled")
+    flipped = own.pix_to_face != cpu.pix_to_face
+    flips = float(flipped.float().mean())
+    both = flipped & (own.zbuf > 0) & (cpu.zbuf > 0)
+    dz = float((own.zbuf - cpu.zbuf)[both].abs().max()) if both.any() else 0.0
+    print(f"[scene render] move of {steps} frames at {size[0]}x{size[1]}, "
+          f"{scene.faces_dev.shape[0]} faces: ids identical on card and CPU, "
+          f"max |zbuf, bary difference| {err:.3e}, covered "
+          f"{float((card.pix_to_face >= 0).float().mean()):.3f}; tiled path "
+          f"{1e3 * (t1 - t0):.1f} ms on the card (first call), "
+          f"{1e3 * (t2 - t1):.1f} ms on the CPU; with the CPU's own "
+          f"projection {flips:.2e} of the pixels change face, their depth "
+          f"by at most {dz:.2e}", flush=True)
+    if flips > 1e-3:
+        fail(f"{flips} of the pixels change face with the CPU's projection")
+    return f9, size
 
 
 def _to_cpu(x):
@@ -327,6 +530,54 @@ def kernel_row(gen, launches, worst_err, c_pad, seq_len):
     }
 
 
+def raster_rows(launches, worst, f9, size):
+    """B1 and B2 at the scene-scale move's shape (its cameras' tiles stacked
+    on the grid): held against their twins there, then timed."""
+    K_cap = rast.k_cap(1024, f9.shape[2])
+    b1, b2 = raster_args(f9, size, K_cap, True)
+    nfe = b1[0].shape[0]
+    tested = {
+        "rasterize_pairs": int(torch.minimum(b1[3].clamp(max=K_cap),
+                                             nfe - b1[2]).clamp(min=0).sum()),
+        "rasterize_tiles": int(b2[2].sum())}
+    print(f"[kernel] move shape: {b1[2].shape[0]} (camera, tile) rows, "
+          f"{tested['rasterize_pairs']} pairs tested (largest tile "
+          f"{int(b1[3].max())}, {int((b1[3] > K_cap).sum())} tiles over K_cap "
+          f"{K_cap}), {tested['rasterize_tiles']} big-face lanes", flush=True)
+    rows = []
+    for name, kernel, plain, args, kname, line in (
+            ("rasterize_pairs", tr.rasterize_pairs, tr.rasterize_pairs_plain,
+             b1, "raster_pairs_kernel", 264),
+            ("rasterize_tiles", tr.rasterize_tiles, tr.rasterize_tiles_plain,
+             b2, "raster_tiles_kernel", 320)):
+        err, _ = hold_raster(name, kernel, plain, args)
+        R, P = args[2].shape[0], TILE * TILE
+        n = tested[name]
+        host_ms = time_ms(lambda: kernel(*args), 20)
+        plain_ms = time_ms(lambda: plain(*args), 3)
+        dev_ms = profiled_device_ms(lambda: kernel(*args), kname)
+        if not dev_ms:
+            fail(f"the profiler trace holds no device time for {kname}")
+        t_ops = tr.flops(n, R, P) / PEAK_FP32_FLOPS * 1e3
+        t_bytes = tr.bytes_moved(n, R, P) / PEAK_BYTES_PER_S * 1e3
+        print(f"[kernel] {name} rows {R} faces tested {n}: max |kernel - "
+              f"plain| {err:.3e}, kernel {dev_ms * 1e3:.2f} us "
+              f"(torch.profiler), {host_ms * 1e3:.2f} us per call (CUDA "
+              f"events, host launch included), plain twin {plain_ms:.3f} ms",
+              flush=True)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "macarons_tpu_torch/csrc/tile_raster.cu",
+            "replaces": f"macarons_tpu/ops/pallas/tile_raster.py:{line}",
+            "launches": launches[name], "max_abs_err": max(worst[name], err),
+            "ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "shape": [R, P, n], "host_ms": host_ms,
+        })
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -335,13 +586,18 @@ def main():
           f"{torch.cuda.get_device_name(0)}", flush=True)
     phase_build()
     worst = phase_kernels(gen)
-    launches, c_pad, seq_len, rt, model, call = phase_trajectory(gen)
-    phase_reference(gen, rt, model, call)
-    row = kernel_row(gen, launches, worst, c_pad, seq_len)
+    worst_raster = phase_raster_kernels(gen)
+    small = phase_trajectory(gen, "trajectory", 0, ["sh_visibility"])
+    phase_reference(gen, small["rt"], small["model"], small["call"])
+    big = phase_trajectory(gen, "scene scale", SCENE_LEVELS, list(KERNELS))
+    f9, size = phase_scene_render(big)
+    rows = raster_rows(big["counts"], worst_raster, f9, size)
+    rows.append(kernel_row(gen, big["counts"]["sh_visibility"], worst,
+                           big["c_pad"], big["seq_len"]))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": rows}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

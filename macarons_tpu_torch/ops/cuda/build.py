@@ -3,8 +3,10 @@
 Each kernel source under ``macarons_tpu_torch/csrc/`` has a plain C
 interface (no PyTorch headers, so ``nvcc`` takes seconds). It is compiled for
 Hopper (``sm_90a``) by ``torch.utils.cpp_extension.load`` into
-``macarons_tpu_torch/_build/<name>/`` and opened with ``ctypes``. Nothing is
-built when a module is imported: the CPU path never needs a compiler.
+``macarons_tpu_torch/_build/<name>/`` and opened with ``ctypes``; a source
+may add its own ``nvcc`` flags. Nothing is built when a module is imported:
+the CPU path never needs a compiler. Different sources build in parallel
+when their first uses come from different threads.
 """
 
 from __future__ import annotations
@@ -19,15 +21,20 @@ BUILD_DIR = os.path.join(os.path.dirname(CSRC_DIR), "_build")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 _libs: dict = {}
+_locks: dict = {}
 _lock = threading.Lock()
 
 
-def load_library(name: str, source: str, verbose: bool = False) -> ctypes.CDLL:
+def load_library(name: str, source: str, extra_flags=(),
+                 verbose: bool = False) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` once per process and return it as a CDLL.
 
-    ``verbose`` prints the build log, including ``ptxas`` register and
-    shared-memory usage. A failed build raises; there is no fallback."""
+    ``extra_flags`` are added to ``nvcc``'s for this source. ``verbose``
+    prints the build log, including ``ptxas`` register and shared-memory
+    usage. A failed build raises; there is no fallback."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
@@ -35,7 +42,8 @@ def load_library(name: str, source: str, verbose: bool = False) -> ctypes.CDLL:
 
         build_dir = os.path.join(BUILD_DIR, name)
         os.makedirs(build_dir, exist_ok=True)
-        flags = CUDA_FLAGS + (["-Xptxas=-v"] if verbose else [])
+        flags = (CUDA_FLAGS + list(extra_flags)
+                 + (["-Xptxas=-v"] if verbose else []))
         path = load(name=name, sources=[os.path.join(CSRC_DIR, source)],
                     extra_cuda_cflags=flags, build_directory=build_dir,
                     is_python_module=False, verbose=verbose)

@@ -30,14 +30,17 @@ def get_camera_RT(X_cam, V_cam):
 
 
 def capture(verts, faces, vert_colors, R, T, height: int, width: int,
-            zfar: float, contrast_factor: float, ambient: float):
+            zfar: float, contrast_factor: float, ambient: float,
+            texture_atlas=None):
     """Render a camera batch under ambient light: (images (N, H, W, 3),
-    depth (N, H, W, 1) view z with -1 = empty, mask (N, H, W, 1))."""
+    depth (N, H, W, 1) view z with -1 = empty, mask (N, H, W, 1)). The
+    albedo is the texture atlas if given, else the vertex colours."""
     cam = FoVCamera.create(R, T, zfar=zfar)
     lights = PointLights.create(torch.zeros((1, 3), device=verts.device),
                                 ambient=ambient, diffuse=0.0, specular=0.0)
     images, frags = render_mesh(verts, faces, cam, (height, width), lights,
-                                vert_colors=vert_colors, background=1.0,
+                                vert_colors=vert_colors,
+                                texture_atlas=texture_atlas, background=1.0,
                                 perspective_correct=True)
     if contrast_factor != 1.0:
         mean = images.mean(dim=(1, 2, 3), keepdim=True)
@@ -224,12 +227,13 @@ class Camera:
         raise RuntimeError("no valid pose found")
 
     def capture_image(self, verts, faces, vert_colors=None, fov_camera=None,
-                      ambient_light_intensity: float = 1.0):
+                      ambient_light_intensity: float = 1.0,
+                      texture_atlas=None):
         """Render RGB + zbuf from the current (or given) camera batch."""
         cam = fov_camera if fov_camera is not None else self.fov_camera
         images, depth, mask = capture(
             verts, faces, vert_colors, cam.R, cam.T, self.image_height,
             self.image_width, self.zfar, float(self.contrast_factor),
-            float(ambient_light_intensity))
+            float(ambient_light_intensity), texture_atlas=texture_atlas)
         self.n_frames_captured += int(cam.R.shape[0])
         return images, depth, mask

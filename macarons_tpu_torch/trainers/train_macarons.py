@@ -57,6 +57,8 @@ class SceneState:
                                          device=dev)
         self.colors_dev = (torch.as_tensor(self.mesh.vert_colors, device=dev)
                            if self.mesh.vert_colors is not None else None)
+        self.atlas_dev = (torch.as_tensor(self.mesh.texture_atlas, device=dev)
+                          if self.mesh.texture_atlas is not None else None)
 
 
 def depth_cfg_from_params(params: Params) -> DepthBatchConfig:
@@ -73,12 +75,15 @@ def depth_cfg_from_params(params: Params) -> DepthBatchConfig:
 
 def setup_scene(params: Params, scene_item: Dict, gen: torch.Generator,
                 device) -> SceneState:
-    """Load the mesh and settings; build the GT and surface grids, the proxy
+    """Load the mesh (with its baked texture atlas, if the OBJ has one) and
+    settings; build the GT and surface grids, the proxy
     field (numpy-seeded by the scene name, as in the JAX package) and the
     camera."""
-    mesh = load_obj(scene_item["obj_path"])
+    mesh = load_obj(scene_item["obj_path"],
+                    create_texture_atlas=params.get("load_obj_textures", True),
+                    texture_atlas_size=params.get("texture_atlas_size", 4))
     mesh = Mesh(mesh.verts * params.get("scene_scale_factor", 1.0),
-                mesh.faces, mesh.vert_colors)
+                mesh.faces, mesh.vert_colors, mesh.texture_atlas)
     s = scene_item["settings"]
     x_min = np.asarray(s.scene_x_min, np.float32)
     x_max = np.asarray(s.scene_x_max, np.float32)
@@ -184,7 +189,8 @@ def capture_and_save(scene: SceneState, memory: Memory, memory_path: str,
     cam = scene.camera
     images, depth, mask = cam.capture_image(
         scene.verts_dev, scene.faces_dev, vert_colors=scene.colors_dev,
-        ambient_light_intensity=lights_intensity)
+        ambient_light_intensity=lights_intensity,
+        texture_atlas=scene.atlas_dev)
     memory.save_frame(memory_path, cam.n_frames_captured - 1, images, depth,
                       mask, cam.fov_camera.R, cam.fov_camera.T, cam.zfar)
     return images, depth, mask
@@ -204,7 +210,7 @@ def move_and_capture(scene: SceneState, memory: Memory, memory_path: str,
     base = cam.n_frames_captured
     images, depth, mask = cam.capture_image(
         scene.verts_dev, scene.faces_dev, vert_colors=scene.colors_dev,
-        fov_camera=batch_cam)
+        fov_camera=batch_cam, texture_atlas=scene.atlas_dev)
     for i in range(images.shape[0]):
         memory.save_frame(memory_path, base + i, images[i:i + 1],
                           depth[i:i + 1], mask[i:i + 1], batch_cam.R[i:i + 1],

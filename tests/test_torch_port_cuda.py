@@ -9,8 +9,11 @@ so it runs on a machine that has only the port's dependencies:
 import pytest
 import torch
 
+from chip_smoke import edge_case_mesh, raster_args
 from macarons_tpu_torch.models.scone import compute_visibilities
+from macarons_tpu_torch.ops import rasterizer as rast
 from macarons_tpu_torch.ops.cuda import sh_visibility as shv
+from macarons_tpu_torch.ops.cuda import tile_raster as tr
 
 pytestmark = pytest.mark.gpu
 
@@ -49,3 +52,66 @@ def test_sh_visibility_rejects_bad_inputs(gen):
         shv.sh_visibility(pts.double(), harm, X_cam)
     with pytest.raises(ValueError):
         shv.sh_visibility(pts, harm[:, :, :32], X_cam)
+
+
+def raster_inputs(gen, size=(37, 53), K_cap=1024, pc=True):
+    """chip_smoke's edge-case mesh (small and big faces, coplanar copies, a
+    degenerate face, a face crossing the camera plane, two cameras): its
+    projected faces and B1's and B2's arguments."""
+    verts, faces, cam = edge_case_mesh(gen)
+    f9 = rast.project_fv_batch(verts, faces, cam)
+    return f9, raster_args(f9, size, K_cap, pc)
+
+
+def assert_same(out, ref):
+    torch.testing.assert_close(out[1], ref[1], rtol=0, atol=0)
+    for a, b in zip(out[::2] + out[3:], ref[::2] + ref[3:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("pc,K_cap", [(True, 1024), (True, 128),
+                                      (False, 128)])
+def test_pair_kernel_matches_twin(gen, pc, K_cap):
+    args = raster_inputs(gen, K_cap=K_cap, pc=pc)[1][0]
+    assert int(args[3].max()) > 128
+    before = tr.rasterize_pairs.launches
+    out = tr.rasterize_pairs(*args)
+    torch.cuda.synchronize()
+    assert tr.rasterize_pairs.launches == before + 1
+    assert_same(out, tr.rasterize_pairs_plain(*args))
+    assert 0.02 < float((out[1] >= 0).float().mean()) < 1.0
+
+
+@pytest.mark.parametrize("pc", [True, False])
+def test_tile_kernel_matches_twin(gen, pc):
+    args = raster_inputs(gen, pc=pc)[1][1]
+    before = tr.rasterize_tiles.launches
+    out = tr.rasterize_tiles(*args)
+    torch.cuda.synchronize()
+    assert tr.rasterize_tiles.launches == before + 1
+    assert_same(out, tr.rasterize_tiles_plain(*args))
+    assert float((out[1] >= 0).float().mean()) > 0.05
+
+
+def test_tiled_path_on_card_matches_cpu(gen):
+    f9 = raster_inputs(gen)[0]
+    for binning in ("pairlist", "topk"):
+        card = rast._rasterize_tiled(f9, (37, 53), 16, 128, True,
+                                     binning=binning)
+        cpu = rast._rasterize_tiled(f9.cpu(), (37, 53), 16, 128, True,
+                                    binning=binning)
+        torch.testing.assert_close(card.pix_to_face.cpu(), cpu.pix_to_face,
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(card.zbuf.cpu(), cpu.zbuf, rtol=0,
+                                   atol=1e-5)
+
+
+def test_tile_raster_rejects_bad_inputs(gen):
+    (pfv, pface, starts, counts, *rest), (fv, valid, n, *more) = \
+        raster_inputs(gen)[1]
+    with pytest.raises(ValueError):
+        tr.rasterize_pairs(pfv, pface.long(), starts, counts, *rest)
+    with pytest.raises(ValueError):
+        tr.rasterize_pairs(pfv[:, :8], pface, starts, counts, *rest)
+    with pytest.raises(ValueError):
+        tr.rasterize_tiles(fv, valid, n, 64, *more[1:])

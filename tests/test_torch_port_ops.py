@@ -7,7 +7,6 @@ import re
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from macarons_tpu.ops import geometry as jgeo
@@ -185,7 +184,7 @@ def test_view_state_bins_exact(rng):
         atol=1e-5)
 
 
-def test_scan_rasterizer_pix_to_face(rng):
+def test_scan_rasterizer_pix_to_face(rng, monkeypatch):
     from macarons_tpu_torch.data.synthetic_suite import build_scene_mesh
 
     mesh = build_scene_mesh(1000)
@@ -205,9 +204,18 @@ def test_scan_rasterizer_pix_to_face(rng):
     np.testing.assert_allclose(tf.bary.numpy(), np.asarray(jf.bary),
                                atol=1e-4)
     assert (tf.pix_to_face >= 0).float().mean() > 0.2
-    big = torch.zeros((4097, 3), dtype=torch.int64)
-    with pytest.raises(NotImplementedError):
-        rast.rasterize(t(verts), big, camera_to_torch(jc), (8, 8))
+    # Above 4 * max_faces_per_tile faces, "auto" takes the binned path on the
+    # CPU (the JAX package's choice off the TPU).
+    binned = rast._rasterize_single_binned
+    calls = []
+    monkeypatch.setattr(rast, "_rasterize_single_binned",
+                        lambda *a, **k: calls.append(a[1].shape) or binned(
+                            *a, **k))
+    big = torch.as_tensor(np.resize(mesh.faces, (4097, 3))).long()
+    frags = rast.rasterize(t(verts), big, camera_to_torch(jc), (32, 48))
+    assert calls == [(4097, 3)] * 2
+    np.testing.assert_array_equal(frags.pix_to_face.numpy() % 232,
+                                  tf.pix_to_face.numpy() % 232)
 
 
 def test_grid_fill_and_coverage(rng):
