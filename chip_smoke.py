@@ -13,11 +13,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   4. score the trajectory's last candidates again on the card and on the CPU
      (the plain twins) with the same Monte-Carlo sample: the gains agree;
   5. scene-scale capture: the same trajectory on synth_00 subdivided 4 times
-     (59,392 faces: tiled capture through kernels B1 and B2), then one move's
-     frames rasterized on the card and on the CPU (the plain twins): the
-     same face ids;
+     (59,392 faces: tiled capture, one fused launch of the tile raster
+     kernel per capture for TPU kernels B1 and B2), then one move's frames
+     rasterized on the card and on the CPU (the plain versions): the same
+     face ids; the tiled path's time, first call and warm;
   6. time each kernel at the shapes of the scene-scale path, and hold it
-     against its twin there;
+     against its twin there; time the two-pass composition (B1, B2, merge)
+     against the fused launch, in turns;
   7. print the kernel table (JSON), the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
 Each trajectory runs with every kernel's launch count set to 0 just before
@@ -26,6 +28,7 @@ it and read just after. Needs CUDA; never falls back to the CPU.
 
 import copy
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -68,7 +71,11 @@ RASTER_ATOL = 1e-5  # zbuf and barycentrics; face ids and slots identical
 TILE = 16
 KERNELS = {"rasterize_pairs": tr.rasterize_pairs,
            "rasterize_tiles": tr.rasterize_tiles,
+           "rasterize_tiled": tr.rasterize_tiled,
            "sh_visibility": shv.sh_visibility}
+# The tile raster wrappers the scene-scale capture path launches: the fused
+# one only (B1 and B2 alone serve binning="topk" and the per-kernel checks).
+SCENE_KERNELS = ["rasterize_tiled", "sh_visibility"]
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -130,8 +137,13 @@ def time_ms(fn, iters=50):
 
 
 def profiled_device_ms(fn, kernel_name, iters=20):
-    """Mean device time of ``kernel_name`` per call from torch.profiler's
-    CUDA trace, or None when the trace holds no device time for it."""
+    """Device time per call of ``fn`` from torch.profiler's CUDA trace:
+    the mean time of every kernel it launches (``kernel_name``, its
+    epilogue, the item table's kernels), each launched once per call,
+    summed. Each mean is over the launches the trace holds, which may be
+    fewer than ``iters``. Returns (ms per call, {kernel: ms per call});
+    fails when the trace holds no device time for ``kernel_name``."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -139,12 +151,18 @@ def profiled_device_ms(fn, kernel_name, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    per = {}
     for e in prof.key_averages():
-        if kernel_name in e.key and e.count:
-            us = getattr(e, "device_time_total", 0) or getattr(
-                e, "cuda_time_total", 0)
-            return us / 1e3 / e.count if us else None
-    return None
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us and e.count:
+            per[e.key] = us / 1e3 / e.count
+    if not any(kernel_name in k for k in per):
+        fail(f"the profiler trace holds no device time for {kernel_name}")
+    return sum(per.values()), per
 
 
 def sh_inputs(gen, B, C, L, P=4):
@@ -339,24 +357,82 @@ def hold_raster(name, kernel, plain, args):
 
 
 def raster_args(f9, size, K_cap, pc):
-    """B1's and B2's arguments for the tiled path of faces f9 (N, 9, F), as
+    """The arguments of B1 (rasterize_pairs), B2 (rasterize_tiles) and of
+    the fused rasterize_tiled for the tiled path of faces f9 (N, 9, F), as
     ops.rasterizer._rasterize_tiled builds them."""
     H, W = size
     TH, TW = rast._tiles(H, W, TILE)
-    pfv, pface, starts, counts, big = rast._pairlist_pairs(f9, size, TILE)
-    fv, valid, _ = rast._big_face_lists(f9, big, H, W, TILE)
-    b1 = (pfv, pface, starts, counts, TILE, TW, H, W, TH * TW, K_cap, pc)
-    b2 = (fv.contiguous(), valid.float(), valid.sum(-1).int(), TILE, TW, H,
-          W, TH * TW, 256, pc)
-    return b1, b2
+    pface, starts, counts, big = rast._pairlist_pairs(f9, size, TILE)
+    valid, faces = rast._big_face_lists(f9, big, H, W, TILE)
+    N, T = f9.shape[0], TH * TW
+    # B1 and B2 alone read face rows gathered by id, camera-major.
+    cam = torch.arange(pface.shape[0], device=f9.device) // (pface.shape[0]
+                                                             // N)
+    pfv = f9[cam, :, pface.long()].contiguous()
+    fv = f9[(torch.arange(N * T, device=f9.device) // T)[:, None], :,
+            faces].permute(0, 2, 1).contiguous()
+    n = valid.sum(-1).int()
+    b1 = (pfv, pface, starts, counts, TILE, TW, H, W, T, K_cap, pc)
+    b2 = (fv, valid.float(), n, TILE, TW, H, W, T, 256, pc)
+    fused = (f9, pface, starts, counts, faces.int(), valid, n, TILE, TW, H, W,
+             T, K_cap, 256, pc)
+    return b1, b2, fused
+
+
+def item_boundary_args(f9, size, K_cap, item, pc, gen):
+    """Synthetic lists around the kernel's item boundaries, over the faces
+    f9 (N, 9, F) of the edge-case mesh. Row r's segment holds 0, item - 1,
+    item, item + 1, 2 item + 1 or K_cap + 5 random face ids (ascending),
+    except the last row, whose 3 pairs are counted 13, past the end of the
+    pair array. Its 128 lanes hold as many valid ones (at most 128): first
+    and all counted in every other group of six rows, else at random places
+    with half of them counted, so that valid lanes past the count rounded up
+    to whole 32-lane chunks (k_chunk 32) are skipped. Returns the arguments
+    of rasterize_pairs, rasterize_tiles and rasterize_tiled, as raster_args
+    does."""
+    H, W = size
+    N, _, F = f9.shape
+    dev = f9.device
+    TH, TW = rast._tiles(H, W, TILE)
+    T, R, K = TH * TW, N * TH * TW, 128
+    cycle = torch.tensor([0, item - 1, item, item + 1, 2 * item + 1,
+                          K_cap + 5], device=dev)
+    lens = cycle[torch.arange(R, device=dev) % len(cycle)]
+    lens[-1] = 3
+    order = torch.rand(R, F, device=dev, generator=gen).argsort(dim=1)
+    pick = torch.arange(F, device=dev) < lens[:, None]
+    ids = torch.sort(torch.where(pick, order, F), dim=1).values
+    pface = ids[ids < F].int()
+    starts = (torch.cumsum(lens, 0) - lens).int()
+    counts = lens.int()
+    counts[-1] += 10  # past the end of the pair array
+    cam = (torch.arange(R, device=dev) // T).repeat_interleave(lens)
+    pfv = f9[cam, :, pface.long()].contiguous()
+    n_valid = lens.clamp(max=K)
+    first = (torch.arange(R, device=dev) // len(cycle)) % 2 == 0
+    lane = torch.arange(K, device=dev)
+    place = torch.where(first[:, None], lane, torch.rand(
+        R, K, device=dev, generator=gen).argsort(dim=1))
+    valid = torch.zeros(R, K, dtype=torch.bool, device=dev)
+    valid.scatter_(1, place, lane < n_valid[:, None])
+    lane_faces = torch.sort(torch.rand(R, F, device=dev, generator=gen)
+                            .argsort(dim=1)[:, :K], dim=1).values
+    fv = f9[(torch.arange(R, device=dev) // T)[:, None], :,
+            lane_faces].permute(0, 2, 1).contiguous()
+    lane_counts = torch.where(first, n_valid, n_valid // 2).int()
+    b1 = (pfv, pface, starts, counts, TILE, TW, H, W, T, K_cap, pc)
+    b2 = (fv, valid.float(), lane_counts, TILE, TW, H, W, T, 32, pc)
+    fused = (f9, pface, starts, counts, lane_faces.int(), valid, lane_counts,
+             TILE, TW, H, W, T, K_cap, 32, pc)
+    return b1, b2, fused
 
 
 def edge_case_mesh(gen):
     """2400 small faces and 200 random big ones around the origin, two ground
     planes, a degenerate face, a face crossing the camera plane and coplanar
     copies of 40 faces and of a plane; two cameras, the second looking past
-    most of it."""
-    dev = "cuda"
+    most of it. On the device of the generator ``gen``."""
+    dev = gen.device
     n = 2600
     centres = torch.rand(n, 1, 3, device=dev, generator=gen) * 3 - 1.5
     offsets = torch.randn(n, 3, 3, device=dev, generator=gen) * 0.08
@@ -375,28 +451,70 @@ def edge_case_mesh(gen):
 
 
 def phase_raster_kernels(gen):
-    """B1 and B2 against their twins on the edge-case mesh: a padded tile
-    column (456 and 53 are not multiples of 16), empty tiles, K_cap overflow,
-    more big faces per tile than lanes, perspective correction on and off."""
+    """The tile raster wrappers against their plain versions on the
+    edge-case mesh: a padded tile column (456 and 53 are not multiples of
+    16), empty tiles, K_cap overflow, more big faces per tile than lanes,
+    perspective correction on and off; B1, B2 and the fused launch on the
+    capture path's lists, and the tiled path with binning="topk" (B2 over
+    dense lists of every face) on the card and on the CPU. Then the lists
+    around the kernel's item boundaries, for several item sizes; and two
+    fused launches bit for bit alike."""
     verts, faces, cam = edge_case_mesh(gen)
     f9 = rast.project_fv_batch(verts, faces, cam)
-    worst = {"rasterize_pairs": 0.0, "rasterize_tiles": 0.0}
+    worst = {"rasterize_pairs": 0.0, "rasterize_tiles": 0.0,
+             "rasterize_tiled": 0.0}
+    wrappers = (("rasterize_pairs", tr.rasterize_pairs,
+                 tr.rasterize_pairs_plain),
+                ("rasterize_tiles", tr.rasterize_tiles,
+                 tr.rasterize_tiles_plain),
+                ("rasterize_tiled", tr.rasterize_tiled,
+                 tr.rasterize_tiled_plain))
     for size, K_cap, pc in (((37, 53), 1024, True), ((37, 53), 128, True),
                             ((37, 53), 128, False), ((256, 456), 1024, True),
                             ((256, 456), 128, False)):
-        b1, b2 = raster_args(f9, size, K_cap, pc)
-        over = int((b1[3] > K_cap).sum())
-        for (name, kernel, plain), args in (
-                (("rasterize_pairs", tr.rasterize_pairs,
-                  tr.rasterize_pairs_plain), b1),
-                (("rasterize_tiles", tr.rasterize_tiles,
-                  tr.rasterize_tiles_plain), b2)):
+        cases = raster_args(f9, size, K_cap, pc)
+        over = int((cases[0][3] > K_cap).sum())
+        for (name, kernel, plain), args in zip(wrappers, cases):
             err, cover = hold_raster(name, kernel, plain, args)
             worst[name] = max(worst[name], err)
             print(f"[kernel] {name} {size[0]}x{size[1]} K_cap {K_cap} "
                   f"perspective {pc}: ids identical, max |kernel - plain| "
                   f"{err:.3e}, covered {cover:.3f}, tiles over K_cap {over}",
                   flush=True)
+        card = rast._rasterize_tiled(f9, size, TILE, K_cap, pc,
+                                     binning="topk")
+        cpu = rast._rasterize_tiled(f9.cpu(), size, TILE, K_cap, pc,
+                                    binning="topk")
+        err = max(float((a.cpu() - b).abs().max()) for a, b in
+                  zip(card[1:], cpu[1:]))
+        if not (torch.equal(card.pix_to_face.cpu(), cpu.pix_to_face)
+                and err <= RASTER_ATOL):
+            fail(f"binning topk {size} K_cap {K_cap}: the card and the CPU "
+                 f"differ (max |zbuf, bary difference| {err})")
+        worst["rasterize_tiles"] = max(worst["rasterize_tiles"], err)
+        print(f"[kernel] tiled path binning topk {size[0]}x{size[1]} K_cap "
+              f"{K_cap}: ids identical on the card and the CPU, max "
+              f"|difference| {err:.3e}", flush=True)
+    # The trajectories after this phase draw their weights and samples from
+    # ``gen``: the synthetic lists take their own generator, so that each
+    # run drives the same trajectories whatever this phase checks.
+    lists_gen = make_generator(torch.device("cuda"), SEED + 1)
+    for item in (1, 7, 64, 128):
+        cases = item_boundary_args(f9, (37, 53), 128, item, True, lists_gen)
+        for (name, kernel, plain), args in zip(wrappers, cases):
+            if name == "rasterize_tiled":
+                kernel = functools.partial(kernel, item=item)
+            err, _ = hold_raster(name, kernel, plain, args)
+            worst[name] = max(worst[name], err)
+        print(f"[kernel] item boundaries, item {item}: rows of 0, {item - 1}, "
+              f"{item}, {item + 1}, {2 * item + 1} and 133 pairs (K_cap 128), "
+              f"stray lanes: B1, B2 and the fused launch hold", flush=True)
+    args = raster_args(f9, (256, 456), 1024, True)[2]
+    first, again = tr.rasterize_tiled(*args), tr.rasterize_tiled(*args)
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        fail("two launches of rasterize_tiled differ")
+    print("[kernel] rasterize_tiled: two launches bit for bit alike",
+          flush=True)
     return worst
 
 
@@ -421,6 +539,15 @@ def phase_scene_render(run):
     t1 = time.perf_counter()
     cpu = rast._rasterize_tiled(f9.cpu(), size, TILE, 1024, True)
     t2 = time.perf_counter()
+    warm = []
+    for _ in range(20):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rast._rasterize_tiled(f9, size, TILE, 1024, True)
+        end.record()
+        torch.cuda.synchronize()
+        warm.append(start.elapsed_time(end))
     if not torch.equal(card.pix_to_face.cpu(), cpu.pix_to_face):
         fail("the move's face ids differ between the card and the CPU")
     err = max(float((a.cpu() - b).abs().max())
@@ -439,7 +566,9 @@ def phase_scene_render(run):
           f"{scene.faces_dev.shape[0]} faces: ids identical on card and CPU, "
           f"max |zbuf, bary difference| {err:.3e}, covered "
           f"{float((card.pix_to_face >= 0).float().mean()):.3f}; tiled path "
-          f"{1e3 * (t1 - t0):.1f} ms on the card (first call), "
+          f"{1e3 * (t1 - t0):.1f} ms on the card (first call, host clock), "
+          f"{float(np.median(warm)):.3f} ms warm (median of 20 calls between "
+          f"CUDA events, {min(warm):.3f}-{max(warm):.3f}), "
           f"{1e3 * (t2 - t1):.1f} ms on the CPU; with the CPU's own "
           f"projection {flips:.2e} of the pixels change face, their depth "
           f"by at most {dz:.2e}", flush=True)
@@ -508,10 +637,8 @@ def kernel_row(gen, launches, worst_err, c_pad, seq_len):
     plain_ms = time_ms(lambda: shv.compute_visibilities_plain(p, h, x), 10)
     t_ops = shv.flops(B, C, L) / PEAK_FP32_FLOPS * 1e3
     t_bytes = shv.bytes_moved(B, C, L) / PEAK_BYTES_PER_S * 1e3
-    dev_ms = profiled_device_ms(lambda: shv.sh_visibility(p, h, x),
-                                "sh_visibility_kernel")
-    if not dev_ms:
-        fail("the profiler trace holds no device time for sh_visibility_kernel")
+    dev_ms, _ = profiled_device_ms(lambda: shv.sh_visibility(p, h, x),
+                                   "sh_visibility_kernel")
     print(f"[kernel] sh_visibility ({B},{C},{L}): max |kernel - plain| "
           f"{err:.3e}, kernel {dev_ms * 1e3:.2f} us (torch.profiler), "
           f"{host_ms * 1e3:.2f} us per call (CUDA events, back-to-back calls, "
@@ -530,42 +657,66 @@ def kernel_row(gen, launches, worst_err, c_pad, seq_len):
     }
 
 
+def short(kernel):
+    """A kernel's name from the profiler, without its return type,
+    namespace and arguments."""
+    name = kernel.replace("void ", "").replace("(anonymous namespace)::", "")
+    return name.split("(")[0][:48]
+
+
+def two_pass(b1, b2, lane_faces):
+    """The tiled path's composition before the fused launch: B1 over the
+    pairs, B2 over the big-face lanes, slots to face ids, the merge."""
+    z, slot, b0, b1_ = tr.rasterize_tiles(*b2)
+    fid = torch.where(slot >= 0,
+                      lane_faces.gather(1, slot.clamp(min=0).long()), -1)
+    return tr.merge_passes(tr.rasterize_pairs(*b1), (z, fid, b0, b1_))
+
+
 def raster_rows(launches, worst, f9, size):
-    """B1 and B2 at the scene-scale move's shape (its cameras' tiles stacked
-    on the grid): held against their twins there, then timed."""
+    """B1 alone, B2 alone and the fused launch at the scene-scale move's
+    shape (its cameras' tiles stacked on the grid): held against their
+    plain versions there, then timed; and the two-pass composition against
+    the fused launch, in turns."""
     K_cap = rast.k_cap(1024, f9.shape[2])
-    b1, b2 = raster_args(f9, size, K_cap, True)
-    nfe = b1[0].shape[0]
-    tested = {
-        "rasterize_pairs": int(torch.minimum(b1[3].clamp(max=K_cap),
-                                             nfe - b1[2]).clamp(min=0).sum()),
-        "rasterize_tiles": int(b2[2].sum())}
-    print(f"[kernel] move shape: {b1[2].shape[0]} (camera, tile) rows, "
-          f"{tested['rasterize_pairs']} pairs tested (largest tile "
-          f"{int(b1[3].max())}, {int((b1[3] > K_cap).sum())} tiles over K_cap "
-          f"{K_cap}), {tested['rasterize_tiles']} big-face lanes", flush=True)
+    b1, b2, fused = raster_args(f9, size, K_cap, True)
+    R, P = b1[2].shape[0], TILE * TILE
+    n_p, _, n_l, cum = tr.item_table(b1[2], b1[3], b1[0].shape[0], K_cap,
+                                     fused[5], fused[6])
+    n_pairs, n_lanes, n_items = int(n_p.sum()), int(n_l.sum()), int(cum[-1])
+    print(f"[kernel] move shape: {R} (camera, tile) rows, {n_pairs} pairs "
+          f"tested (largest tile {int(b1[3].max())}, "
+          f"{int((b1[3] > K_cap).sum())} tiles over K_cap {K_cap}), "
+          f"{n_lanes} big-face lanes; {n_items} items of at most {tr.ITEM} "
+          f"faces", flush=True)
     rows = []
-    for name, kernel, plain, args, kname, line in (
+    for name, kernel, plain, args, line, n, t_ops, t_bytes in (
             ("rasterize_pairs", tr.rasterize_pairs, tr.rasterize_pairs_plain,
-             b1, "raster_pairs_kernel", 264),
+             b1, 264, n_pairs, tr.flops(n_pairs, R, P),
+             tr.bytes_moved(n_pairs, R, P)),
             ("rasterize_tiles", tr.rasterize_tiles, tr.rasterize_tiles_plain,
-             b2, "raster_tiles_kernel", 320)):
+             b2, 320, n_lanes, tr.flops(n_lanes, R, P),
+             tr.bytes_moved(n_lanes, R, P)),
+            ("rasterize_tiled", tr.rasterize_tiled, tr.rasterize_tiled_plain,
+             fused, 264, n_pairs + n_lanes,
+             tr.tiled_flops(n_pairs, n_lanes, R, P),
+             tr.tiled_bytes(n_pairs, n_lanes, R, P))):
         err, _ = hold_raster(name, kernel, plain, args)
-        R, P = args[2].shape[0], TILE * TILE
-        n = tested[name]
         host_ms = time_ms(lambda: kernel(*args), 20)
         plain_ms = time_ms(lambda: plain(*args), 3)
-        dev_ms = profiled_device_ms(lambda: kernel(*args), kname)
-        if not dev_ms:
-            fail(f"the profiler trace holds no device time for {kname}")
-        t_ops = tr.flops(n, R, P) / PEAK_FP32_FLOPS * 1e3
-        t_bytes = tr.bytes_moved(n, R, P) / PEAK_BYTES_PER_S * 1e3
+        dev_ms, per = profiled_device_ms(lambda: kernel(*args),
+                                         "raster_tiled_kernel")
+        t_ops = t_ops / PEAK_FP32_FLOPS * 1e3
+        t_bytes = t_bytes / PEAK_BYTES_PER_S * 1e3
+        parts = ", ".join(f"{short(k)} {v * 1e3:.2f}" for k, v in
+                          sorted(per.items(), key=lambda kv: -kv[1]))
         print(f"[kernel] {name} rows {R} faces tested {n}: max |kernel - "
-              f"plain| {err:.3e}, kernel {dev_ms * 1e3:.2f} us "
-              f"(torch.profiler), {host_ms * 1e3:.2f} us per call (CUDA "
-              f"events, host launch included), plain twin {plain_ms:.3f} ms",
+              f"plain| {err:.3e}, {dev_ms * 1e3:.2f} us of device time per "
+              f"call (torch.profiler; us: {parts}), {host_ms * 1e3:.2f} us "
+              f"per call (CUDA events, host launch included), plain "
+              f"{plain_ms:.3f} ms, bound {max(t_ops, t_bytes) * 1e3:.2f} us",
               flush=True)
-        rows.append({
+        row = {
             "name": name, "route": "cuda",
             "source": "macarons_tpu_torch/csrc/tile_raster.cu",
             "replaces": f"macarons_tpu/ops/pallas/tile_raster.py:{line}",
@@ -574,7 +725,39 @@ def raster_rows(launches, worst, f9, size):
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None, "shape": [R, P, n], "host_ms": host_ms,
-        })
+            "kernel_ms": sum(v for k, v in per.items()
+                             if "raster_tiled_kernel" in k),
+        }
+        if name == "rasterize_tiled":
+            row["replaces_also"] = "macarons_tpu/ops/pallas/tile_raster.py:320"
+        rows.append(row)
+
+    sweep = []
+    for item in (16, 32, 64, 128):
+        _, per = profiled_device_ms(
+            lambda: tr.rasterize_tiled(*fused, item=item),
+            "raster_tiled_kernel")
+        us = 1e3 * sum(v for k, v in per.items()
+                       if "raster_tiled_kernel" in k)
+        sweep.append(f"{item} faces {us:.2f} us")
+    print("[kernel] rasterize_tiled at the move shape, raster_tiled_kernel's "
+          "device time by item size: " + ", ".join(sweep), flush=True)
+    lane_faces = fused[4]
+    if not torch.equal(two_pass(b1, b2, lane_faces)[1],
+                       tr.rasterize_tiled(*fused)[1]):
+        fail("the two-pass composition and the fused launch differ")
+    turns = []
+    for label, fn in (("two-pass", lambda: two_pass(b1, b2, lane_faces)),
+                      ("fused", lambda: tr.rasterize_tiled(*fused)),
+                      ("fused", lambda: tr.rasterize_tiled(*fused)),
+                      ("two-pass", lambda: two_pass(b1, b2, lane_faces))):
+        turns.append((label, time_ms(fn, 20),
+                      profiled_device_ms(fn, "raster_tiled_kernel")[0]))
+    print("[kernel] two-pass composition (B1, B2, merge) vs fused launch at "
+          "the move shape, in turns: " + "; ".join(
+              f"{label} {host * 1e3:.2f} us per call (CUDA events), "
+              f"{dev * 1e3:.2f} us device" for label, host, dev in turns),
+          flush=True)
     return rows
 
 
@@ -589,7 +772,10 @@ def main():
     worst_raster = phase_raster_kernels(gen)
     small = phase_trajectory(gen, "trajectory", 0, ["sh_visibility"])
     phase_reference(gen, small["rt"], small["model"], small["call"])
-    big = phase_trajectory(gen, "scene scale", SCENE_LEVELS, list(KERNELS))
+    big = phase_trajectory(gen, "scene scale", SCENE_LEVELS, SCENE_KERNELS)
+    if big["counts"]["rasterize_pairs"] or big["counts"]["rasterize_tiles"]:
+        fail("the scene-scale capture ran the two-pass composition: "
+             f"{big['counts']}")
     f9, size = phase_scene_render(big)
     rows = raster_rows(big["counts"], worst_raster, f9, size)
     rows.append(kernel_row(gen, big["counts"]["sh_visibility"], worst,

@@ -11,13 +11,14 @@ Three paths compute per-pixel nearest-face id, view-space zbuf (empty pixels
   each tile tests its list with tensor ops (the JAX package's XLA binned
   path, which it runs on the CPU).
 - ``"tiled"``: the JAX package's Pallas path. A tile-sorted (tile, face) pair
-  list feeds kernel B1 for faces spanning at most 2x2 tiles (the first
+  list holds the faces spanning at most 2x2 tiles (B1 tests the first
   ``K_cap`` pairs of each tile); faces spanning more ("big": ground slabs,
-  near walls) go through dense per-tile lists and kernel B2, and the two
-  passes merge with a face-id tie-break. The whole camera batch (e.g. the
-  interpolation steps of a move) is one launch of each kernel. CUDA tensors
-  launch the kernels of ops.cuda.tile_raster; CPU tensors take their plain
-  twins.
+  near walls) go through dense per-tile lists (B2), and the two passes merge
+  with a face-id tie-break. On CUDA tensors the whole camera batch (e.g. the
+  interpolation steps of a move) is one launch of ops.cuda.tile_raster's
+  ``rasterize_tiled``, both passes and the merge; CPU tensors take its plain
+  version (the B1 and B2 twins and the merge). ``binning="topk"`` uses dense
+  lists for every face (``rasterize_tiles``).
 
 ``method="auto"`` takes ``"scan"`` up to ``4 * max_faces_per_tile`` faces,
 above that ``"tiled"`` for CUDA tensors and ``"binned"`` for CPU tensors, as
@@ -33,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from .cuda.tile_raster import BLOCK_ELEMS, f32, ieee_div, nearest_face, \
-    rasterize_pairs, rasterize_tiles
+    rasterize_tiled, rasterize_tiles
 from .geometry import FoVCamera, ndc_pixel_grid
 
 
@@ -231,10 +232,10 @@ def _pairlist_pairs(f9, image_size, tile: int, span_cap: int = SPAN_CAP,
 
     f9 (N, 9, F). Each face whose box spans at most span_cap x span_cap tiles
     enumerates the tiles it overlaps; one sort of the keys tile * F + face
-    groups them per tile in ascending face order. Returns (pfv (N * E * F, 9)
-    float32 rows, pface (N * E * F,) int32 face ids, starts and counts
-    (N * T,) int32 of each (camera, tile) segment, big (N, F) bool: the faces
-    spanning more tiles, which are not in the pair list)."""
+    groups them per tile in ascending face order. Returns (pface (N * E * F,)
+    int32 face ids, starts and counts (N * T,) int32 of each (camera, tile)
+    segment, big (N, F) bool: the faces spanning more tiles, which are not in
+    the pair list)."""
     H, W = image_size
     N, _, F = f9.shape
     dev = f9.device
@@ -291,17 +292,15 @@ def _pairlist_pairs(f9, image_size, tile: int, span_cap: int = SPAN_CAP,
     edges = torch.searchsorted(sorted_keys, bounds.contiguous())
     starts = edges[:, :-1] + (torch.arange(N, device=dev) * (E * F))[:, None]
     counts = edges[:, 1:] - edges[:, :-1]
-    pfv = f9.transpose(1, 2).gather(
-        1, sorted_faces[..., None].expand(N, E * F, 9))
-    return (pfv.reshape(N * E * F, 9), sorted_faces.reshape(-1).int(),
-            starts.reshape(-1).int(), counts.reshape(-1).int(), big)
+    return (sorted_faces.reshape(-1).int(), starts.reshape(-1).int(),
+            counts.reshape(-1).int(), big)
 
 
 def _big_face_lists(f9, big, H: int, W: int, tile: int):
     """Dense per-tile lists of each camera's big faces: the first
     MAX_BIG_FACES big faces by id, then per tile the first BIG_LANES that
-    overlap it. Returns (tile_fv (N * T, 9, BIG_LANES), valid (N * T,
-    BIG_LANES) bool, face ids (N * T, BIG_LANES))."""
+    overlap it. Returns (valid (N * T, BIG_LANES) bool, face ids (N * T,
+    BIG_LANES), ascending over the valid lanes)."""
     N, _, F = f9.shape
     B = min(MAX_BIG_FACES, F)
     big_ids = _first(big, B)  # (N, B) ascending big face ids first
@@ -315,9 +314,7 @@ def _big_face_lists(f9, big, H: int, W: int, tile: int):
     valid = bhit.gather(-1, lidx)
     T = lidx.shape[1]
     faces = big_ids.gather(1, lidx.clamp(max=B - 1).reshape(N, -1))
-    fv = f9.transpose(1, 2).gather(1, faces[..., None].expand(-1, -1, 9))
-    return (fv.reshape(N * T, BIG_LANES, 9).transpose(1, 2),
-            valid.reshape(N * T, BIG_LANES), faces.reshape(N * T, BIG_LANES))
+    return valid.reshape(N * T, BIG_LANES), faces.reshape(N * T, BIG_LANES)
 
 
 def _tile_pass(tile_fv, valid, faces, H, W, tile, perspective_correct, eps):
@@ -344,24 +341,17 @@ def _rasterize_tiled(f9, image_size, tile: int, max_faces_per_tile: int,
     if binning not in ("pairlist", "topk"):
         raise ValueError(f"unknown binning {binning!r}")
     if binning == "pairlist" and T * (F + 1) < 2**31 - 1:
-        pfv, pface, starts, counts, big = _pairlist_pairs(
+        pface, starts, counts, big = _pairlist_pairs(
             f9, image_size, tile, eps=eps, face_mask=face_mask)
-        zs, fids, b0s, b1s = rasterize_pairs(
-            pfv, pface, starts, counts, tile, TW, H, W, n_tiles=T, K_cap=K,
-            perspective_correct=perspective_correct, eps=eps)
-        # B2 runs even when no face is big: its empty rows write the empty
-        # sentinel, and the host never waits on the device to decide.
-        zb, fidb, b0b, b1b = _tile_pass(*_big_face_lists(f9, big, H, W, tile),
-                                        H, W, tile, perspective_correct, eps)
-        fids = fids.long()
-        hit_s = fids >= 0
-        # On a z tie across the two passes the smaller face id wins.
-        better = (fidb >= 0) & (~hit_s | (zb < zs)
-                                | ((zb == zs) & (fidb < fids)))
-        zbuf = torch.where(better, zb, zs)
-        fid = torch.where(better, fidb, fids)
-        b0 = torch.where(better, b0b, b0s)
-        b1 = torch.where(better, b1b, b1s)
+        valid, faces = _big_face_lists(f9, big, H, W, tile)
+        # The big-face lanes go in even when no face is big: rows without
+        # work write the empty sentinel, and the host never waits on the
+        # device to decide.
+        zbuf, fid, b0, b1 = rasterize_tiled(
+            f9, pface, starts, counts, faces.int(), valid,
+            valid.sum(dim=-1, dtype=torch.int32), tile, TW, H, W, n_tiles=T,
+            K_cap=K, perspective_correct=perspective_correct, eps=eps)
+        fid = fid.long()
     else:
         ok = _z_ok(f9, eps)
         if face_mask is not None:

@@ -9,7 +9,7 @@ so it runs on a machine that has only the port's dependencies:
 import pytest
 import torch
 
-from chip_smoke import edge_case_mesh, raster_args
+from chip_smoke import edge_case_mesh, item_boundary_args, raster_args
 from macarons_tpu_torch.models.scone import compute_visibilities
 from macarons_tpu_torch.ops import rasterizer as rast
 from macarons_tpu_torch.ops.cuda import sh_visibility as shv
@@ -57,7 +57,7 @@ def test_sh_visibility_rejects_bad_inputs(gen):
 def raster_inputs(gen, size=(37, 53), K_cap=1024, pc=True):
     """chip_smoke's edge-case mesh (small and big faces, coplanar copies, a
     degenerate face, a face crossing the camera plane, two cameras): its
-    projected faces and B1's and B2's arguments."""
+    projected faces and the arguments of B1, B2 and the fused launch."""
     verts, faces, cam = edge_case_mesh(gen)
     f9 = rast.project_fv_batch(verts, faces, cam)
     return f9, raster_args(f9, size, K_cap, pc)
@@ -107,7 +107,7 @@ def test_tiled_path_on_card_matches_cpu(gen):
 
 
 def test_tile_raster_rejects_bad_inputs(gen):
-    (pfv, pface, starts, counts, *rest), (fv, valid, n, *more) = \
+    (pfv, pface, starts, counts, *rest), (fv, valid, n, *more), fused = \
         raster_inputs(gen)[1]
     with pytest.raises(ValueError):
         tr.rasterize_pairs(pfv, pface.long(), starts, counts, *rest)
@@ -115,3 +115,91 @@ def test_tile_raster_rejects_bad_inputs(gen):
         tr.rasterize_pairs(pfv[:, :8], pface, starts, counts, *rest)
     with pytest.raises(ValueError):
         tr.rasterize_tiles(fv, valid, n, 64, *more[1:])
+    f9, pface, *lists = fused[:7]
+    with pytest.raises(ValueError):
+        tr.rasterize_tiled(f9, pface.long(), *lists, *fused[7:])
+    with pytest.raises(ValueError):  # 2 cameras but 3 tiles per camera
+        tr.rasterize_tiled(*fused[:11], 3, *fused[12:])
+    with pytest.raises(ValueError):
+        tr.rasterize_tiled(*fused, item=129)
+
+
+@pytest.mark.parametrize("size,K_cap,pc", [((37, 53), 1024, True),
+                                           ((37, 53), 128, True),
+                                           ((37, 53), 128, False),
+                                           ((256, 456), 1024, True)])
+def test_fused_kernel_matches_plain(gen, size, K_cap, pc):
+    """rasterize_tiled against its plain version (the B1 and B2 twins and
+    their merge) on the card: identical ids, and two launches bit for bit
+    alike."""
+    args = raster_inputs(gen, size, K_cap, pc)[1][2]
+    before = tr.rasterize_tiled.launches
+    out = tr.rasterize_tiled(*args)
+    again = tr.rasterize_tiled(*args)
+    torch.cuda.synchronize()
+    assert tr.rasterize_tiled.launches == before + 2
+    assert_same(out, tr.rasterize_tiled_plain(*args))
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    assert 0.02 < float((out[1] >= 0).float().mean()) < 1.0
+
+
+@pytest.mark.parametrize("item", [1, 7, 64, 128])
+def test_kernel_at_item_boundaries(gen, item):
+    """Rows of 0, item - 1, item, item + 1 and more than K_cap pairs, a
+    segment running past the pair array, valid lanes past the counted
+    chunks: the fused launch and B1 and B2 alone against their plain
+    versions."""
+    f9 = raster_inputs(gen)[0]
+    b1, b2, fused = item_boundary_args(f9, (37, 53), 128, item, True, gen)
+    assert_same(tr.rasterize_tiled(*fused, item=item),
+                tr.rasterize_tiled_plain(*fused))
+    assert_same(tr.rasterize_pairs(*b1), tr.rasterize_pairs_plain(*b1))
+    assert_same(tr.rasterize_tiles(*b2), tr.rasterize_tiles_plain(*b2))
+
+
+@pytest.mark.parametrize("item", [1, 64])
+def test_item_table_kernel_matches_plain(gen, item):
+    """raster_items_kernel against the table's tensor ops on the CPU."""
+    f9 = raster_inputs(gen)[0]
+    for args in (raster_args(f9, (37, 53), 128, True)[2],
+                 item_boundary_args(f9, (37, 53), 128, item, True, gen)[2]):
+        _, pface, starts, counts, _, valid, lane_counts = args[:7]
+        lists = (starts, counts, pface.shape[0], 128, valid, lane_counts,
+                 args[13], item)
+        scratch = torch.zeros((starts.shape[0], 256), dtype=torch.int64,
+                              device="cuda")
+        card = tr.item_table(*lists, scratch=scratch)
+        cpu = tr.item_table(*(a.cpu() if torch.is_tensor(a) else a
+                              for a in lists))
+        for i in (0, 2, 3):
+            assert torch.equal(card[i].cpu(), cpu[i])
+        tested = torch.arange(valid.shape[1]) < cpu[2][:, None]
+        assert torch.equal(card[1].cpu()[tested], cpu[1][tested])
+        assert bool((scratch == -1).all())
+
+
+def test_pairlist_path_is_one_fused_launch(gen):
+    f9 = raster_inputs(gen)[0]
+    counts = [f.launches for f in (tr.rasterize_tiled, tr.rasterize_pairs,
+                                   tr.rasterize_tiles)]
+    rast._rasterize_tiled(f9, (37, 53), 16, 128, True)
+    after = [f.launches for f in (tr.rasterize_tiled, tr.rasterize_pairs,
+                                  tr.rasterize_tiles)]
+    assert after == [counts[0] + 1, counts[1], counts[2]]
+
+
+def test_tile_raster_wrappers_never_sync(gen):
+    b1, b2, fused = raster_inputs(gen)[1]
+    calls = ((tr.rasterize_pairs, b1), (tr.rasterize_tiles, b2),
+             (tr.rasterize_tiled, fused))
+    for fn, args in calls:  # builds the kernel
+        fn(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn, args in calls:
+            fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
