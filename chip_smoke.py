@@ -17,10 +17,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      kernel per capture for TPU kernels B1 and B2), then one move's frames
      rasterized on the card and on the CPU (the plain versions): the same
      face ids; the tiled path's time, first call and warm;
-  6. time each kernel at the shapes of the scene-scale path, and hold it
+  6. depth: the default test config as users run it, on the 59,392-face
+     scene: ManyDepth depth at 256x456 with 96 planes and the predicted
+     SconeOcc field, random weights for the three networks from a seed, 5
+     nbv poses; every disparity in (0, 1), every depth finite and in
+     [znear, zfar]; then ManyDepth on the card and on the CPU, same weights,
+     on the last decision batch (B 1) and the last supervision batch (B 4):
+     the disparities and the depth step's masks agree; ManyDepth's forward
+     time at B 1 and B 4;
+  7. time each kernel at the shapes of the scene-scale path, and hold it
      against its twin there; time the two-pass composition (B1, B2, merge)
      against the fused launch, in turns;
-  7. print the kernel table (JSON), the card's name and power limit, and the
+  8. print the kernel table (JSON), the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
 Each trajectory runs with every kernel's launch count set to 0 just before
 it and read just after. Needs CUDA; never falls back to the CPU.
@@ -53,7 +61,13 @@ from macarons_tpu_torch.ops.cuda import sh_visibility as shv
 from macarons_tpu_torch.ops.cuda import tile_raster as tr
 from macarons_tpu_torch.ops.cuda.build import BUILD_DIR
 from macarons_tpu_torch.ops.geometry import FoVCamera, look_at_view_transform
+from macarons_tpu_torch.ops.projection import disparity_to_depth
 from macarons_tpu_torch.scene.camera import get_camera_RT
+from macarons_tpu_torch.scene.depth_runtime import (
+    depth_masks,
+    error_table,
+    many_depth_inputs,
+)
 from macarons_tpu_torch.scene.memory import Memory
 from macarons_tpu_torch.testers.scene import compute_trajectory
 from macarons_tpu_torch.trainers.train_macarons import (
@@ -68,6 +82,10 @@ N_POSES = 5
 SCENE_LEVELS = 4  # 232 * 4**4 = 59,392 faces
 ATOL = 1e-4
 RASTER_ATOL = 1e-5  # zbuf and barycentrics; face ids and slots identical
+# The error mask thresholds a regularity table at its mean + std: a pixel
+# within this relative distance of the threshold may fall on either side
+# when the card's and the CPU's disparities differ in their last bits.
+ERR_REL = 1e-5
 TILE = 16
 KERNELS = {"rasterize_pairs": tr.rasterize_pairs,
            "rasterize_tiles": tr.rasterize_tiles,
@@ -165,6 +183,32 @@ def profiled_device_ms(fn, kernel_name, iters=20):
     return sum(per.values()), per
 
 
+def device_breakdown(fn, iters=5):
+    """Device time per call of ``fn``, every kernel it launches summed, from
+    torch.profiler's CUDA trace over ``iters`` calls. Returns (ms per call,
+    {kernel: ms per call})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us:
+            per[e.key] = us / 1e3 / iters
+    if not per:
+        fail("the profiler trace holds no device time")
+    return sum(per.values()), per
+
+
 def sh_inputs(gen, B, C, L, P=4):
     dev = "cuda"
     pts = torch.randn(B, L, P, device=dev, generator=gen) * 0.5
@@ -227,33 +271,38 @@ def phase_kernels(gen):
     return worst
 
 
-def smoke_params(root):
+def smoke_params(root, fixture=True):
     """The default test config with its training config, on the synthetic
-    scene, with perfect depth and the carving occupancy field."""
+    scene; with ``fixture``, perfect depth and the carving occupancy field
+    in place of ManyDepth and the predicted field."""
     params = normalize_test_config(load_params(os.path.join(
         REPO_DIR, "configs/test/test_in_default_scenes_config.json")),
         REPO_DIR)
     train = load_params(os.path.join(REPO_DIR, params.training_config))
     train.update(params.to_dict())
     train.update(dict(
-        dataset_path=root, test_scenes=["synth_00"], use_perfect_depth=True,
-        use_supervision_occ=True,
+        dataset_path=root, test_scenes=["synth_00"],
         # The synthetic suite is built at unit scale: its settings' boxes and
         # pose lattices are not multiplied by the landmark scenes' 10x.
         scene_scale_factor=1.0))
+    if fixture:
+        train.update(dict(use_perfect_depth=True, use_supervision_occ=True))
     return train
 
 
-def phase_trajectory(gen, label, levels, needs):
-    """Drive N_POSES nbv poses on synth_00 subdivided ``levels`` times, with
+def phase_trajectory(gen, label, levels, needs, fixture=True):
+    """Drive N_POSES nbv poses on synth_00 subdivided ``levels`` times (with
+    the fixtures of ``smoke_params``, or as users run the config), with
     every launch count set to 0 just before and read just after; fail unless
-    each kernel in ``needs`` launched. Returns what later phases use."""
+    each kernel in ``needs`` launched. Returns what later phases use,
+    among them the last depth batch of each size and, with ManyDepth, every
+    depth step's depth and disparities."""
     dev = resolve_device("cuda")
     tag = f"[{label}]"
     with tempfile.TemporaryDirectory(prefix="chip_smoke_",
                                      dir=_work_dir()) as tmp:
         root = scene_scale_suite(os.path.join(tmp, "scenes"), levels)
-        params = smoke_params(root)
+        params = smoke_params(root, fixture)
         print(f"{tag} widths: image {params.image_height}x"
               f"{params.image_width}, proxies {params.n_proxy_points}, "
               f"seq_len {params.seq_len}, k_for_knn {params.k_for_knn}, "
@@ -281,6 +330,22 @@ def phase_trajectory(gen, label, levels, needs):
             return g
 
         rt.coverage_gains = recording_gains
+        # With ManyDepth: the last depth batch of each size, and the range
+        # of every depth and disparity, kept on the card (no sync).
+        depth_log, depths, disps, hooks = {}, [], [], []
+        if model.depth is not None:
+            apply_depth = rt.apply_depth_inference
+
+            def recording_depth(batch, alpha):
+                out = apply_depth(batch, alpha)
+                depth_log[batch["images"].shape[0]] = (batch, alpha)
+                depths.append(value_range(out[0]))
+                return out
+
+            rt.apply_depth_inference = recording_depth
+            hooks.append(model.depth.register_forward_hook(
+                lambda module, args, out: disps.extend(
+                    value_range(d) for d in out[1:])))
         events = {}
 
         def on_pose(i, phase):
@@ -303,6 +368,8 @@ def phase_trajectory(gen, label, levels, needs):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read_counts()
+        for hook in hooks:
+            hook.remove()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     def span(i, a, b):
@@ -334,7 +401,8 @@ def phase_trajectory(gen, label, levels, needs):
             fail(f"the {label} trajectory never launched the {name} kernel")
     return dict(counts=counts, c_pad=cand_shapes[0][0], seq_len=params.seq_len,
                 rt=rt, model=model, call=calls[-1], traj=traj, scene=scene,
-                params=params)
+                params=params, depth_log=depth_log, depths=depths,
+                disps=disps, peak_gib=peak_gib)
 
 
 def hold_raster(name, kernel, plain, args):
@@ -577,6 +645,107 @@ def phase_scene_render(run):
     return f9, size
 
 
+def value_range(x):
+    """(min, max, all finite) of ``x`` as one tensor on its device."""
+    return torch.stack((x.min(), x.max(), torch.isfinite(x).all().to(x.dtype)))
+
+
+def phase_depth():
+    """The default test config as users run it (ManyDepth, the predicted
+    occupancy field) on the scene-scale suite, with its own generator so
+    that the phases after it draw what they drew before it. Every disparity
+    must lie in (0, 1) and every depth be finite and in [znear, zfar]. Then
+    ManyDepth runs on the card and on the CPU, same weights and inputs, on
+    the last decision batch (B 1) and the last supervision batch (B 4):
+    disp1..disp4 within ATOL; the depth step's depth within rtol 1e-4, the
+    mask identical and the error mask identical off the pixels within
+    ERR_REL of its threshold. ManyDepth's forward is timed at both sizes
+    (median of 20 calls between CUDA events)."""
+    gen = make_generator(torch.device("cuda"), SEED + 2)
+    run = phase_trajectory(gen, "depth", SCENE_LEVELS, SCENE_KERNELS,
+                           fixture=False)
+    params, model, cfg = run["params"], run["model"], run["rt"].dcfg
+    if model.depth is None or not run["disps"]:
+        fail("the default test config did not run ManyDepth")
+    print(f"[depth] ManyDepth {params.image_height}x{params.image_width}, "
+          f"{params.n_depth} planes, float32; depth batches "
+          f"{sorted(run['depth_log'])}, {len(run['depths'])} depth steps",
+          flush=True)
+    disps, depths = torch.stack(run["disps"]), torch.stack(run["depths"])
+    lo, hi = float(disps[:, 0].min()), float(disps[:, 1].max())
+    if not (bool(disps[:, 2].all()) and 0.0 < lo <= hi < 1.0):
+        fail(f"disparities outside (0, 1): {lo} .. {hi}")
+    finite = bool(depths[:, 2].all())
+    zlo, zhi = float(depths[:, 0].min()), float(depths[:, 1].max())
+    if not (finite and cfg.znear <= zlo <= zhi <= cfg.zfar):
+        fail(f"depths not finite in [{cfg.znear}, {cfg.zfar}]: {zlo} .. {zhi}")
+    print(f"[depth] disparities {lo:.4f} .. {hi:.4f}, depths {zlo:.4f} .. "
+          f"{zhi:.4f}, all finite", flush=True)
+
+    net = model.depth
+    cpu_net = copy.deepcopy(net).cpu()
+    for B, (batch, alpha) in sorted(run["depth_log"].items()):
+        args = many_depth_inputs(cfg, batch, alpha)
+        cpu_args = [a.cpu() for a in args]
+        with torch.no_grad():
+            card = net(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cpu = cpu_net(*cpu_args)
+            cpu_s = time.perf_counter() - t0
+        err = max(float((a.cpu() - b).abs().max())
+                  for a, b in zip(card[1:], cpu[1:]))
+        if not err <= ATOL:
+            fail(f"ManyDepth at B {B}: the card and the CPU differ by {err}")
+        images, mask = cpu_args[0], batch["mask"].cpu()
+        mask_card, err_card = depth_masks(cfg, card[1], args[0],
+                                          batch["mask"])
+        mask_cpu, err_cpu = depth_masks(cfg, cpu[1], images, mask)
+        table, thr = error_table(cfg, cpu[1], images, mask)
+        near = torch.abs(table - thr) <= ERR_REL * torch.abs(thr)
+        differ = err_card.cpu() != err_cpu
+        if not torch.equal(mask_card.cpu(), mask_cpu):
+            fail(f"ManyDepth at B {B}: the depth masks differ")
+        if bool((differ & ~near).any()):
+            fail(f"ManyDepth at B {B}: {int((differ & ~near).sum())} error "
+                 "mask pixels differ away from the threshold")
+        if not torch.allclose(
+                disparity_to_depth(card[1], cfg.znear, cfg.zfar).cpu(),
+                disparity_to_depth(cpu[1], cfg.znear, cfg.zfar), rtol=1e-4,
+                atol=0):
+            fail(f"ManyDepth at B {B}: depths differ beyond rtol 1e-4")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        with torch.no_grad():
+            for _ in range(23):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                net(*args)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+        times = times[3:]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with torch.no_grad():
+            busy, per = device_breakdown(lambda: net(*args))
+        top = ", ".join(f"{short(k)} {v:.3f}" for k, v in sorted(
+            per.items(), key=lambda kv: -kv[1])[:6])
+        print(f"[depth] ManyDepth B {B}: max |card - CPU| disparity "
+              f"{err:.3e}; error mask pixels that differ {int(differ.sum())} "
+              f"(within {ERR_REL} of the threshold {int(near.sum())}) of "
+              f"{differ.numel()}; forward {float(np.median(times)):.3f} ms "
+              f"on the card (median of 20 calls between CUDA events, "
+              f"{min(times):.3f}-{max(times):.3f}), {cpu_s:.2f} s on the CPU; "
+              f"peak device memory of the forward {peak:.2f} GiB; device "
+              f"time {busy:.3f} ms per forward over {len(per)} kernels "
+              f"(torch.profiler; ms: {top})", flush=True)
+    print(f"[depth] phase peak device memory {run['peak_gib']:.2f} GiB "
+          "(the trajectory)", flush=True)
+    return run
+
+
 def _to_cpu(x):
     if isinstance(x, torch.Tensor):
         return x.cpu()
@@ -777,6 +946,7 @@ def main():
         fail("the scene-scale capture ran the two-pass composition: "
              f"{big['counts']}")
     f9, size = phase_scene_render(big)
+    phase_depth()
     rows = raster_rows(big["counts"], worst_raster, f9, size)
     rows.append(kernel_row(gen, big["counts"]["sh_visibility"], worst,
                            big["c_pad"], big["seq_len"]))

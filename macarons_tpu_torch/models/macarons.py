@@ -1,40 +1,74 @@
-"""The MACARONS bundle, SCONE part (port of the SconeOcc/SconeVis subset of
-macarons_tpu/models/macarons.py). ManyDepth is not ported yet: the bundle
-serves the perfect-depth path only."""
+"""The MACARONS bundle: SconeOcc, SconeVis and ManyDepth (port of
+macarons_tpu/models/macarons.py, inference only)."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Optional
 
 import torch
+import torch.nn as nn
 
 from ..config import Params
 from .attention import init_weights
+from .many_depth import ManyDepth
 from .scone import SconeOcc, SconeVis
 
 
 class MacaronsModel(NamedTuple):
     occ: SconeOcc
     vis: SconeVis
+    depth: Optional[ManyDepth] = None  # None under use_perfect_depth
 
 
 def create_macarons_model(params: Params, device=None) -> MacaronsModel:
-    """Build SconeOcc and SconeVis from the config, in eval mode on
-    ``device`` with empty weights (see ``init_macarons_weights`` and
-    utils.convert.load_macarons_weights)."""
-    if not params.get("use_perfect_depth", False):
-        raise NotImplementedError(
-            "ManyDepth depth inference is not ported yet: set "
-            "use_perfect_depth=true")
+    """Build the networks from the config, in eval mode on ``device`` with
+    empty weights (see ``init_macarons_weights`` and
+    utils.convert.load_macarons_weights). ManyDepth is built unless the
+    config reads perfect depth, which nothing then reads it for."""
     occ = SconeOcc(seq_len=params.get("seq_len", 2048),
                    n_scale=0 if params.get("no_local_features", False) else 3,
                    k_for_knn=params.get("k_for_knn", 16))
     vis = SconeVis()
-    return MacaronsModel(occ.to(device).eval(), vis.to(device).eval())
+    depth = None
+    if not params.get("use_perfect_depth", False):
+        if params.get("depth_compute_dtype") not in (None, "none", "float32"):
+            raise NotImplementedError(
+                "ManyDepth runs in float32 only: depth_compute_dtype "
+                f"{params.get('depth_compute_dtype')!r} is not ported yet")
+        depth = ManyDepth(
+            input_height=params.get("image_height", 256),
+            input_width=params.get("image_width", 456),
+            d_min=params.get("znear", 0.5), d_max=params.get("zfar", 750.0),
+            n_depth=params.get("n_depth", 96),
+            pose_factor=params.get("pose_factor", 100.0),
+            learn_pose=params.get("learn_pose", False)).to(device).eval()
+    return MacaronsModel(occ.to(device).eval(), vis.to(device).eval(), depth)
+
+
+def init_depth_weights(module: nn.Module, gen: torch.Generator):
+    """Flax's default init: LeCun-normal conv kernels (a normal truncated at
+    two standard deviations, of variance 1 / fan_in) and zero biases;
+    BatchNorm weight 1, bias 0, running mean 0 and variance 1."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.weight[0].numel()
+                std = math.sqrt(1.0 / fan_in) / .87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std,
+                                      2.0 * std, generator=gen)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+    return module
 
 
 def init_macarons_weights(model: MacaronsModel, gen: torch.Generator):
-    """Random init of both networks from one generator (occ, then vis)."""
+    """Random init of the networks from one generator: occ, vis, then
+    ManyDepth (so a bundle without ManyDepth draws what it always drew)."""
     init_weights(model.occ, gen)
     init_weights(model.vis, gen)
+    if model.depth is not None:
+        init_depth_weights(model.depth, gen)
     return model

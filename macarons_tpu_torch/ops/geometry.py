@@ -163,3 +163,84 @@ def ndc_bounds(height: int, width: int) -> Tuple[float, float, float, float]:
     max_y = height / s
     min_y = height / s - 2.0 * (height - 1) / (s - 1)
     return float(min_x), float(max_x), float(min_y), float(max_y)
+
+
+# ---------------------------------------------------------------------------
+# Rotation algebra (pose composition in the depth module)
+# ---------------------------------------------------------------------------
+
+
+def quaternion_from_matrix(R):
+    """Rotation matrix (..., 3, 3) -> unit quaternion (..., 4) (w, x, y, z).
+
+    Branch-free like the JAX package: of Shepperd's four candidates, the one
+    whose diagonal term is largest is kept, unnormalised, then normalised."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    q0 = torch.stack((1 + tr, m21 - m12, m02 - m20, m10 - m01), dim=-1)
+    q1 = torch.stack((m21 - m12, 1 + m00 - m11 - m22, m01 + m10, m02 + m20),
+                     dim=-1)
+    q2 = torch.stack((m02 - m20, m01 + m10, 1 - m00 + m11 - m22, m12 + m21),
+                     dim=-1)
+    q3 = torch.stack((m10 - m01, m02 + m20, m12 + m21, 1 - m00 - m11 + m22),
+                     dim=-1)
+    case = torch.argmax(torch.stack((tr, m00, m11, m22), dim=-1),
+                        dim=-1)[..., None]
+    q = torch.where(case == 0, q0, torch.where(
+        case == 1, q1, torch.where(case == 2, q2, q3)))
+    return q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True),
+                           min=1e-12)
+
+
+def matrix_from_quaternion(q):
+    """Unit quaternion (w, x, y, z) -> rotation matrix (..., 3, 3)."""
+    q = normalize(q, eps=1e-12)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    row0 = torch.stack((1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                        2 * (x * z + w * y)), dim=-1)
+    row1 = torch.stack((2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                        2 * (y * z - w * x)), dim=-1)
+    row2 = torch.stack((2 * (x * z - w * y), 2 * (y * z + w * x),
+                        1 - 2 * (x * x + y * y)), dim=-1)
+    return torch.stack((row0, row1, row2), dim=-2)
+
+
+def axis_angle_from_matrix(R):
+    """Rotation matrix -> axis-angle vector (..., 3), through the quaternion:
+    angle 2 arccos(w); below 1e-6 the first-order 2 (x, y, z)."""
+    q = quaternion_from_matrix(R)
+    w = torch.clamp(q[..., 0], -1.0, 1.0)
+    angle = 2.0 * torch.arccos(w)
+    s = torch.sqrt(torch.clamp(1.0 - w * w, min=1e-12))
+    axis = q[..., 1:] / s[..., None]
+    small = (angle < 1e-6)[..., None]
+    return torch.where(small, q[..., 1:] * 2.0, axis * angle[..., None])
+
+
+def matrix_from_axis_angle(aa):
+    """Axis-angle vector (..., 3) -> rotation matrix (..., 3, 3) (Rodrigues,
+    through the quaternion; below 1e-8 the first-order quaternion)."""
+    angle = torch.linalg.norm(aa, dim=-1, keepdim=True)
+    small = angle < 1e-8
+    axis = aa / torch.where(small, torch.ones_like(angle), angle)
+    half = angle[..., 0] / 2.0
+    w = torch.where(small[..., 0], torch.ones_like(half), torch.cos(half))
+    xyz = torch.where(small, aa / 2.0, axis * torch.sin(half)[..., None])
+    return matrix_from_quaternion(torch.cat((w[..., None], xyz), dim=-1))
+
+
+def relative_pose(R_a, T_a, R_b, T_b):
+    """The row-vector pose taking view A to view B: X_b = X_a @ R_rel + T_rel
+    with R_rel = R_a^T R_b and T_rel = T_b - T_a @ R_rel."""
+    R_rel = torch.einsum("...ji,...jk->...ik", R_a, R_b)
+    T_rel = T_b - torch.einsum("...j,...jk->...k", T_a, R_rel)
+    return R_rel, T_rel
+
+
+def compose_pose(R_ab, T_ab, R_bc, T_bc):
+    """Compose row-vector poses: X_c = (X_a @ R_ab + T_ab) @ R_bc + T_bc."""
+    R_ac = torch.einsum("...ij,...jk->...ik", R_ab, R_bc)
+    T_ac = torch.einsum("...j,...jk->...k", T_ab, R_bc) + T_bc
+    return R_ac, T_ac

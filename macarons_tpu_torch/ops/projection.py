@@ -70,3 +70,11 @@ def depth_to_disparity(depth, znear, zfar):
     a = 1.0 / znear - 1.0 / zfar
     b = 1.0 / zfar
     return (1.0 / depth - b) / a
+
+
+def disparity_to_depth(disp, znear, zfar):
+    """disp in (0, 1) -> depth 1 / (a disp + b), a = 1/znear - 1/zfar,
+    b = 1/zfar."""
+    a = 1.0 / znear - 1.0 / zfar
+    b = 1.0 / zfar
+    return 1.0 / (a * disp + b)

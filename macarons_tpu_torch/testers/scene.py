@@ -61,9 +61,9 @@ def _depth_step(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
     cam = scene.camera
     frames = memory.load_frame_sequence(memory_path, cam.n_frames_captured - 1,
                                         n_frames)
-    batch, _ = create_batch_for_depth_model(rt.dcfg, frames, mode,
-                                            device=rt.device)
-    depth, mask, err_mask = rt.apply_depth_inference(batch)
+    batch, alpha = create_batch_for_depth_model(rt.dcfg, frames, mode,
+                                                device=rt.device)
+    depth, mask, err_mask = rt.apply_depth_inference(batch, alpha)
     params = rt.params
     mapping_update(rt, scene, depth, mask, err_mask, batch["R"], batch["T"],
                    gen, carving_tolerance=params.get("carving_tolerance", 0.0),

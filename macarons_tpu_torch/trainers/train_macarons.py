@@ -2,9 +2,10 @@
 subset of macarons_tpu/trainers/train_macarons.py; the online trainer is not
 ported yet).
 
-A pose step captures frames, reads depth (perfect depth here), backprojects
-it into the surface grid and carves the proxy field; the decision phase runs
-the occupancy field and the NBV scorer from scene.runtime.
+A pose step captures frames, reads depth (ManyDepth, or perfect depth),
+backprojects it into the surface grid and carves the proxy field; the
+decision phase runs the occupancy field and the NBV scorer from
+scene.runtime.
 """
 
 from __future__ import annotations
@@ -31,7 +32,11 @@ from ..scene import grid as G
 from ..scene import proxy as P
 from ..scene import runtime as R
 from ..scene.camera import Camera, PoseSpace
-from ..scene.depth_runtime import DepthBatchConfig, perfect_depth_inference
+from ..scene.depth_runtime import (
+    DepthBatchConfig,
+    many_depth_inference,
+    perfect_depth_inference,
+)
 from ..scene.memory import Memory
 
 
@@ -69,6 +74,7 @@ def depth_cfg_from_params(params: Params) -> DepthBatchConfig:
         use_future_frame_for_supervision=params.get(
             "use_future_frame_for_supervision", False),
         znear=params.get("znear", 0.5), zfar=params.get("zfar", 750.0),
+        pose_factor=params.get("pose_factor", 100.0),
         use_depth_mask=params.get("use_depth_mask", True),
     )
 
@@ -170,9 +176,12 @@ class MacaronsRuntime:
             cfg, table, self.params.get("prediction_neighborhood_size", 3.0),
             self.device)
 
-    def apply_depth_inference(self, batch):
-        """(depth, mask, error_mask) for a depth batch."""
-        return perfect_depth_inference(self.dcfg, batch)
+    def apply_depth_inference(self, batch, alpha):
+        """(depth, mask, error_mask) for a depth batch and its alphas: the
+        ground truth under use_perfect_depth, else ManyDepth's."""
+        if self.params.get("use_perfect_depth", False):
+            return perfect_depth_inference(self.dcfg, batch)
+        return many_depth_inference(self.model.depth, self.dcfg, batch, alpha)
 
     def occupancy_field(self, proxy, surface, prediction_camera, **kw):
         kw.setdefault("full_field",

@@ -4,8 +4,12 @@ package's msgpack checkpoints (macarons_tpu/utils/checkpoint.py).
 The port's modules carry the submodule names Flax gives their counterparts,
 so a parameter maps by path. Every Dense of the JAX package wraps an inner
 ``nn.Dense`` named ``Dense_0``: its ``kernel`` (in, out) becomes
-``<wrapper>.weight`` (out, in) and its ``bias`` ``<wrapper>.bias``; a
-LayerNorm's ``scale`` and ``bias`` become ``weight`` and ``bias``.
+``<wrapper>.weight`` (out, in) and its ``bias`` ``<wrapper>.bias``. A
+``nn.Conv`` is told apart by the rank of its kernel: (kh, kw, in, out)
+becomes ``<conv>.weight`` (out, in, kh, kw), its ``bias`` ``<conv>.bias``. A
+LayerNorm's or BatchNorm's ``scale`` and ``bias`` become ``weight`` and
+``bias``; a BatchNorm's ``batch_stats`` ``mean`` and ``var`` become
+``running_mean`` and ``running_var``.
 """
 
 from __future__ import annotations
@@ -27,15 +31,26 @@ def _flatten(tree: Mapping, prefix=()):
 
 def flax_to_torch(params_tree: Mapping) -> Dict[str, torch.Tensor]:
     """Nested dict of numpy arrays (a Flax ``params`` collection, or a
-    variables dict holding one) -> state dict."""
+    variables dict holding one and perhaps ``batch_stats``) -> state dict."""
+    stats = {}
     if "params" in params_tree:
+        stats = params_tree.get("batch_stats", {})
         params_tree = params_tree["params"]
     leaves = dict(_flatten(params_tree))
     out = {}
     for path, value in leaves.items():
         parent, leaf = path[:-1], path[-1]
         arr = torch.tensor(np.asarray(value, np.float32))
-        if parent + ("kernel",) in leaves:  # inner nn.Dense of a Dense wrapper
+        kernel = leaves.get(parent + ("kernel",))
+        if kernel is not None and np.ndim(kernel) == 4:  # nn.Conv
+            name = ".".join(parent)
+            if leaf == "kernel":
+                out[name + ".weight"] = arr.permute(3, 2, 0, 1).contiguous()
+            elif leaf == "bias":
+                out[name + ".bias"] = arr
+            else:
+                raise KeyError(".".join(path))
+        elif kernel is not None:  # inner nn.Dense of a Dense wrapper
             name = ".".join(parent[:-1])
             if leaf == "kernel":
                 out[name + ".weight"] = arr.T.contiguous()
@@ -43,10 +58,18 @@ def flax_to_torch(params_tree: Mapping) -> Dict[str, torch.Tensor]:
                 out[name + ".bias"] = arr
             else:
                 raise KeyError(".".join(path))
-        elif leaf in ("scale", "bias"):  # LayerNorm
+        elif leaf in ("scale", "bias"):  # LayerNorm, BatchNorm
             out[".".join(parent) + (".weight" if leaf == "scale" else ".bias")] = arr
         else:
             raise KeyError(f"unmapped Flax parameter {'.'.join(path)}")
+    running = {"mean": ".running_mean", "var": ".running_var"}
+    for path, value in _flatten(stats):
+        name = ".".join(path[:-1])
+        if path[-1] not in running:
+            raise KeyError(f"unmapped Flax batch statistic {'.'.join(path)}")
+        out[name + running[path[-1]]] = torch.tensor(
+            np.asarray(value, np.float32))
+        out[name + ".num_batches_tracked"] = torch.tensor(0)
     return out
 
 
@@ -129,8 +152,11 @@ def read_msgpack(path: str):
 
 
 def load_macarons_weights(model, path: str):
-    """Load the occ and vis networks of a JAX MACARONS checkpoint."""
+    """Load the networks of a JAX MACARONS checkpoint: occ and vis, and the
+    depth network's params and batch statistics when the model has one."""
     tree = read_msgpack(path)
     model.occ.load_state_dict(flax_to_torch(tree["occ"]))
     model.vis.load_state_dict(flax_to_torch(tree["vis"]))
+    if model.depth is not None:
+        model.depth.load_state_dict(flax_to_torch(tree["depth"]))
     return model

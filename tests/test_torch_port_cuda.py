@@ -10,10 +10,13 @@ import pytest
 import torch
 
 from chip_smoke import edge_case_mesh, item_boundary_args, raster_args
+from macarons_tpu_torch.models.macarons import init_depth_weights
+from macarons_tpu_torch.models.many_depth import ManyDepth
 from macarons_tpu_torch.models.scone import compute_visibilities
 from macarons_tpu_torch.ops import rasterizer as rast
 from macarons_tpu_torch.ops.cuda import sh_visibility as shv
 from macarons_tpu_torch.ops.cuda import tile_raster as tr
+from macarons_tpu_torch.utils.device import resolve_device
 
 pytestmark = pytest.mark.gpu
 
@@ -202,4 +205,56 @@ def test_tile_raster_wrappers_never_sync(gen):
             fn(*args)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def many_depth_inputs(B, A=2, H=256, W=456):
+    """Images and known relative poses at the default test config's widths,
+    on the CPU: the target at R = I, T = 0, the alphas a small rotation and
+    shift away (the pose vector is [T, axis-angle] / pose_factor)."""
+    g = torch.Generator().manual_seed(B)
+    x = torch.rand(B, H, W, 3, generator=g)
+    x_alpha = torch.rand(B, A, H, W, 3, generator=g)
+    R = torch.eye(3).expand(B, 3, 3)
+    T = torch.zeros(B, 3)
+    pose = torch.randn(B, A, 6, generator=g) * 2e-3
+    return x, x_alpha, R, T, pose
+
+
+@pytest.fixture
+def many_depth(gen):
+    """ManyDepth at the default test config's widths (96 planes), random
+    weights, in eval mode on the CPU and (a copy) on the card."""
+    resolve_device("cuda")  # TF32 off for the convolutions
+    cpu = ManyDepth().eval()
+    init_depth_weights(cpu, torch.Generator().manual_seed(0))
+    card = ManyDepth().eval()
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card.cuda()
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_many_depth_on_card_matches_cpu(many_depth, B):
+    cpu, card = many_depth
+    args = many_depth_inputs(B)
+    with torch.no_grad():
+        ref = cpu(*args)
+        out = card(*(a.cuda() for a in args))
+    torch.cuda.synchronize()
+    for a, b in zip(out[1:], ref[1:]):
+        assert float(b.min()) > 0.0 and float(b.max()) < 1.0
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
+
+
+def test_many_depth_never_syncs(many_depth):
+    _, card = many_depth
+    args = [a.cuda() for a in many_depth_inputs(1)]
+    with torch.no_grad():
+        card(*args)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            card(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()

@@ -45,8 +45,10 @@ def random_flax_variables(module, seed, *init_args):
     """A Flax variables dict for ``module`` with seeded numpy weights.
 
     The tree's layout comes from ``jax.eval_shape`` of ``module.init`` (no
-    compile); kernels are N(0, 1/fan_in), biases N(0, 0.1^2), LayerNorm
-    scales 1 + N(0, 0.1^2)."""
+    compile); kernels are N(0, 1/fan_in) (a conv kernel (kh, kw, in, out)
+    has fan-in kh kw in), biases N(0, 0.1^2), LayerNorm and BatchNorm
+    scales 1 + N(0, 0.1^2); BatchNorm statistics have means N(0, 0.1^2) and
+    variances 1 + 0.1 |N(0, 1)|."""
     import jax
 
     shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *init_args)
@@ -56,7 +58,10 @@ def random_flax_variables(module, seed, *init_args):
         name = path[-1].key
         z = rs.normal(size=leaf.shape).astype(np.float32)
         if name == "kernel":
-            return z / np.sqrt(leaf.shape[0])
+            return z / np.sqrt(np.prod(leaf.shape[:-1]) if len(leaf.shape) == 4
+                               else leaf.shape[0])
+        if name == "var":
+            return 1.0 + 0.1 * np.abs(z)
         return 1.0 + 0.1 * z if name == "scale" else 0.1 * z
 
     return jax.tree_util.tree_map_with_path(draw, shapes)
