@@ -6,7 +6,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   1. build the CUDA kernels from macarons_tpu_torch/csrc (one nvcc per
      source, all started together);
   2. hold each kernel against its plain PyTorch twin on the card, at edge
-     cases;
+     cases; B3's backward kernel (the SCONE step's gradient of the SH
+     coefficients) against its plain version at the SCONE step's shapes;
   3. drive the nbv scene-exploration trajectory at the default test config's
      widths on the generated synthetic scene synth_00 (232 faces: scan
      capture), with random SCONE weights from a seed, and check its outputs;
@@ -25,18 +26,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      on the last decision batch (B 1) and the last supervision batch (B 4):
      the disparities and the depth step's masks agree; ManyDepth's forward
      time at B 1 and B 4;
-  7. time each kernel at the shapes of the scene-scale path, and hold it
-     against its twin there; time the two-pass composition (B1, B2, merge)
-     against the fused launch, in turns;
-  8. print the kernel table (JSON), the card's name and power limit, and the
+  7. train: run_training with the default training config on the
+     59,392-face scene, epoch 0 (4 poses, a remap at pose 2), then a resumed
+     run through epoch 1 with depth and SCONE replay; per-pose phase times,
+     the checks of phase_train; one depth step (B 1) and one SCONE step on
+     the card against the CPU; the depth step at B 4 and the SCONE step
+     timed alone;
+  8. time each kernel at the shapes of the scene-scale path (B3's backward
+     at the SCONE step's), and hold it against its twin there; time the
+     two-pass composition (B1, B2, merge) against the fused launch, in
+     turns;
+  9. print the kernel table (JSON), the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
-Each trajectory runs with every kernel's launch count set to 0 just before
-it and read just after. Needs CUDA; never falls back to the CPU.
+Each trajectory (the train phase: both runs together) runs with every
+kernel's launch count set to 0 just before it and read just after. Needs CUDA; never falls back to the CPU.
 """
 
 import copy
 import dataclasses
 import functools
+import gc
 import json
 import os
 import subprocess
@@ -48,13 +57,20 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from macarons_tpu_torch.config import load_params, normalize_test_config
+from macarons_tpu_torch.config import (
+    Params,
+    load_params,
+    normalize_test_config,
+)
 from macarons_tpu_torch.data.mesh_io import Mesh, load_obj, save_obj
 from macarons_tpu_torch.data.scenes import SceneDataset
 from macarons_tpu_torch.data.synthetic_suite import generate_suite
 from macarons_tpu_torch.models.macarons import (
+    MacaronsModel,
     create_macarons_model,
+    create_optimizers,
     init_macarons_weights,
+    load_macarons,
 )
 from macarons_tpu_torch.ops import rasterizer as rast
 from macarons_tpu_torch.ops.cuda import sh_visibility as shv
@@ -72,6 +88,8 @@ from macarons_tpu_torch.scene.memory import Memory
 from macarons_tpu_torch.testers.scene import compute_trajectory
 from macarons_tpu_torch.trainers.train_macarons import (
     MacaronsRuntime,
+    run_training,
+    seeded_generator,
     setup_scene,
 )
 from macarons_tpu_torch.utils.device import make_generator, resolve_device
@@ -90,10 +108,23 @@ TILE = 16
 KERNELS = {"rasterize_pairs": tr.rasterize_pairs,
            "rasterize_tiles": tr.rasterize_tiles,
            "rasterize_tiled": tr.rasterize_tiled,
-           "sh_visibility": shv.sh_visibility}
+           "sh_visibility": shv.sh_visibility,
+           "sh_visibility_backward": shv.sh_visibility_backward}
 # The tile raster wrappers the scene-scale capture path launches: the fused
 # one only (B1 and B2 alone serve binning="topk" and the per-kernel checks).
 SCENE_KERNELS = ["rasterize_tiled", "sh_visibility"]
+# The train phase's kernels: capture, scoring, and B3's backward in every
+# SCONE step.
+TRAIN_KERNELS = ["rasterize_tiled", "sh_visibility", "sh_visibility_backward"]
+TRAIN_POSES = 4
+TRAIN_REMAP = 2
+# Card against CPU for the optimizer steps: the least gradient error,
+# relative to the network's largest gradient, that fails a step (see
+# FP32_SLACK): where the CPU's float32 gradient is within a few ulps of the
+# float64 one, the card's is held to this float32 floor instead.
+STEP_REL = 1e-4
+# The B3 backward kernel against its plain version, relative to max |grad|.
+BACKWARD_REL = 1e-5
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -160,27 +191,30 @@ def profiled_device_ms(fn, kernel_name, iters=20):
     epilogue, the item table's kernels), each launched once per call,
     summed. Each mean is over the launches the trace holds, which may be
     fewer than ``iters``. Returns (ms per call, {kernel: ms per call});
-    fails when the trace holds no device time for ``kernel_name``."""
+    a trace that holds no device time for ``kernel_name`` is taken once
+    more (one did, after the train phase: PERF.md §6), and a second
+    such trace fails the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us and e.count:
-            per[e.key] = us / 1e3 / e.count
-    if not any(kernel_name in k for k in per):
-        fail(f"the profiler trace holds no device time for {kernel_name}")
-    return sum(per.values()), per
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us and e.count:
+                per[e.key] = us / 1e3 / e.count
+        if any(kernel_name in k for k in per):
+            return sum(per.values()), per
+    fail(f"the profiler trace holds no device time for {kernel_name}")
 
 
 def device_breakdown(fn, iters=5):
@@ -746,12 +780,434 @@ def phase_depth():
     return run
 
 
-def _to_cpu(x):
+class StepRecorder:
+    """Counts the runtime's optimizer steps per (epoch, phase) while it is
+    entered, and keeps the arguments of the last online depth step and of
+    every online SCONE step. ``on_phase`` is the trainer's phase hook: it
+    also records a CUDA event at every phase boundary."""
+
+    def __init__(self):
+        self.epoch, self.phase = None, None
+        self.steps = {}
+        self.events = {}
+        self.depth_call = None
+        self.scone_calls = []
+
+    def on_phase(self, epoch, pose_i, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events[(epoch, pose_i, name)] = ev
+        self.epoch, self.phase = epoch, name
+
+    def __enter__(self):
+        self.saved = (MacaronsRuntime.depth_train_step,
+                      MacaronsRuntime.scone_train_step)
+        depth_step, scone_step = self.saved
+
+        def count(kind):
+            key = (self.epoch, self.phase, kind)
+            self.steps[key] = self.steps.get(key, 0) + 1
+
+        def depth(rt, opt, batch, alpha, **kw):
+            count("depth")
+            if self.phase == "depth_step":
+                self.depth_call = (rt, batch, alpha)
+            return depth_step(rt, opt, batch, alpha, **kw)
+
+        def scone(rt, *args, **kw):
+            count("scone")
+            if self.phase == "scone_step":
+                self.scone_calls.append((rt, args, kw))
+            return scone_step(rt, *args, **kw)
+
+        MacaronsRuntime.depth_train_step = depth
+        MacaronsRuntime.scone_train_step = scone
+        return self
+
+    def __exit__(self, *exc):
+        (MacaronsRuntime.depth_train_step,
+         MacaronsRuntime.scone_train_step) = self.saved
+
+    def count(self, epoch, phase, kind):
+        return self.steps.get((epoch, phase, kind), 0)
+
+    def span(self, epoch, pose_i, a, b):
+        return self.events[(epoch, pose_i, a)].elapsed_time(
+            self.events[(epoch, pose_i, b)])
+
+
+def train_params(root, epochs):
+    """The default training config on the scene-scale suite: full widths,
+    4 poses per trajectory with a remap at pose 2, 2 rotating memory
+    trajectories, no validation, random weights from its torch_seed. The
+    remap saves every frame's depth: the config's every fourth would leave
+    4 of the 13 frames it maps, fewer than the 7 depths that 2 SCONE replay
+    loops of 4 need."""
+    params = load_params(os.path.join(
+        REPO_DIR, "configs/macarons/macarons_default_training_config.json"))
+    params.update(dict(
+        data_path=root, epochs=epochs, start_from_scratch=epochs == 1,
+        n_poses_in_trajectory=TRAIN_POSES, remap_every_n_poses=TRAIN_REMAP,
+        n_memory_trajectories=2, save_depth_every_n_frame=1,
+        validate_every_n_epochs=0, pretrained=False,
+        macarons_model_name="smoke",
+        # The synthetic suite is built at unit scale (see smoke_params).
+        scene_scale_factor=1.0))
+    return params
+
+
+def grads_of(module):
+    return {n: p.grad.detach().cpu().double()
+            for n, p in module.named_parameters() if p.grad is not None}
+
+
+def grad_error(grads, ref):
+    """max |grads - ref| over a network's gradients, relative to the
+    largest reference gradient."""
+    if set(grads) != set(ref) or not ref:
+        fail("gradients of different parameters: "
+             f"{sorted(set(grads) ^ set(ref))}")
+    scale = max(float(g.abs().max()) for g in ref.values())
+    if not scale > 0:
+        fail("the step gave a network no gradient")
+    return max(float((grads[k] - ref[k]).abs().max()) for k in ref) / scale
+
+
+# The optimizer steps are run three times from one state: on the card and
+# on the CPU in float32, and on the CPU in float64 as the reference. The
+# depth step's float32 gradients are ill-conditioned (BatchNorm in train
+# mode over one frame: the card's and the CPU's differed by 0.6-1.5 % of
+# max |g| with their losses within 2e-5, PERF.md §6), so the card is held
+# to be no further from the float64 gradient than FP32_SLACK times the
+# CPU's float32 is (or STEP_REL, whichever is larger).
+FP32_SLACK = 3.0
+RUNS = (("cuda", torch.float32), ("cpu", torch.float32),
+        ("cpu", torch.float64))
+
+
+def in_dtype(dtype, fn):
+    """fn() with ``dtype`` as the default floating type (the tensors the
+    port creates inside a step take it)."""
+    saved = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    try:
+        return fn()
+    finally:
+        torch.set_default_dtype(saved)
+
+
+def net_copy(net, dev, dtype):
+    return None if net is None else copy.deepcopy(net).to(dev, dtype)
+
+
+def fp32_errors(out, nets):
+    """Per network: the card's and the CPU's float32 gradient error against
+    the float64 one; fails unless the card's is within the slack."""
+    ref, card, cpu = out[RUNS[2]], out[RUNS[0]], out[RUNS[1]]
+    errs = {}
+    for name in nets:
+        e_card = grad_error(card[name], ref[name])
+        e_cpu = grad_error(cpu[name], ref[name])
+        errs[f"{name}_grad_card"], errs[f"{name}_grad_cpu"] = e_card, e_cpu
+        if not e_card <= max(STEP_REL, FP32_SLACK * e_cpu):
+            fail(f"the {name} gradient on the card is further from the "
+                 f"float64 one than the CPU's float32: {errs}")
+    return errs
+
+
+def hold_depth_step(params, model, batch, alpha):
+    """One depth optimizer step from one state (the networks of ``model``,
+    fresh AdamW, augmentation with fixed draws) in each of RUNS: the card's
+    loss within rtol 1e-4 of the CPU's and the running statistics BatchNorm
+    leaves within 1e-5, and its gradient as close to the float64 one as
+    fp32_errors asks. Returns the errors."""
+    draws = {"jitter": True, "symmetry": True,
+             "factors": (1.1, 0.9, 1.05, 0.03)}
+    out = {}
+    for dev, dt in RUNS:
+        def step():
+            m = MacaronsModel(*(net_copy(n, dev, dt) for n in
+                                (model.occ, model.vis, model.depth)))
+            opts = create_optimizers(params, m)
+            loss = MacaronsRuntime(params, m, device=dev).depth_train_step(
+                opts["depth"], _to(batch, dev, dt), _to(alpha, dev, dt),
+                draws=draws)[0]
+            return {"loss": float(loss), "depth": grads_of(m.depth),
+                    "stats": {k: v.cpu().double() for k, v in
+                              m.depth.named_buffers()
+                              if v.is_floating_point()}}
+        out[(dev, dt)] = in_dtype(dt, step)
+    card, cpu = out[RUNS[0]], out[RUNS[1]]
+    errs = {"loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+            "stats_rel": max(float((card["stats"][k] - v).abs().max())
+                             / max(float(v.abs().max()), 1e-30)
+                             for k, v in cpu["stats"].items())}
+    if not (np.isfinite(card["loss"]) and errs["loss_rel"] <= 1e-4
+            and errs["stats_rel"] <= 1e-5):
+        fail(f"the depth step on the card and on the CPU differ: {errs}")
+    errs.update(fp32_errors(out, ["depth"]))
+    return errs
+
+
+def hold_scone_step(params, model, rt, args, kw, gen, n_cells_active=5):
+    """One SCONE optimizer step from one state in each of RUNS: ``args``/
+    ``kw`` are a recorded scone_train_step call; the cell-ranking noise and
+    the Monte-Carlo sample (points drawn among the occupied ones) are drawn
+    once and given to every run. The card's losses within rtol 1e-3 of the
+    CPU's (SconeOcc's kNN and both networks' attention reduce in another
+    order), its gradients of SconeOcc and SconeVis as close to the float64
+    ones as fp32_errors asks, and one launch of the B3 backward kernel.
+    Returns the errors."""
+    args = args[1:]  # the recorded optimizer is the trainer's
+    # The ranking's first n_cells_active cells are the first ones of any
+    # longer ranking by the same noise: rank only those.
+    params = Params(dict(params.to_dict(), occ_curriculum_max_cells=min(
+        n_cells_active, rt.occ_curriculum_max_cells)))
+    field = args[7]
+    X_world, _, occ, valid = field
+    pool = torch.nonzero((occ[:, 0] > rt.coverage_gain.min_occ) & valid)[:, 0]
+    n_cams = args[4].R.shape[0]
+    kw = dict(kw, n_cells_active=n_cells_active, gen=None,
+              cell_noise=torch.rand(rt._tables.slots.shape[0], device="cuda",
+                                    generator=gen),
+              sample_idx=pool[torch.randint(
+                  len(pool), (n_cams, rt.coverage_gain.seq_len),
+                  device="cuda", generator=gen)])
+    def step(dev, dt):
+        m = MacaronsModel(net_copy(model.occ, dev, dt),
+                          net_copy(model.vis, dev, dt), None)
+        r = MacaronsRuntime(params, m, device=dev)
+        r._tables = _to(rt._tables, dev, dt)
+        opts = create_optimizers(params, m)
+        before = shv.sh_visibility_backward.launches
+        losses = r.scone_train_step(opts["scone"], *_to(args, dev, dt),
+                                    **_to(kw, dev, dt))
+        if (dev == "cuda"
+                and shv.sh_visibility_backward.launches != before + 1):
+            fail("the SCONE step on the card did not launch the "
+                 "sh_visibility backward kernel once")
+        return {"losses": [float(v) for v in losses[1:]],
+                "occ": grads_of(m.occ), "vis": grads_of(m.vis)}
+
+    out = {(dev, dt): in_dtype(dt, lambda: step(dev, dt))
+           for dev, dt in RUNS}
+    # What sets the card's gradient error: a second card run tells
+    # rounding that changes from run to run (atomic accumulation) from
+    # arithmetic the card repeats, and the parameter the largest error
+    # sits in says which layer it comes from.
+    again = in_dtype(torch.float32, lambda: step(*RUNS[0]))
+    ref_occ, card_occ = out[RUNS[2]]["occ"], out[RUNS[0]]["occ"]
+    diag = {"occ_card_rerun": grad_error(again["occ"], card_occ),
+            "vis_card_rerun": grad_error(again["vis"], out[RUNS[0]]["vis"]),
+            "occ_worst_param": max(
+                ref_occ, key=lambda k: float((card_occ[k]
+                                              - ref_occ[k]).abs().max()))}
+    print(f"[train] SCONE step, the card's gradient error: {diag}",
+          flush=True)
+    card, cpu = out[RUNS[0]]["losses"], out[RUNS[1]]["losses"]
+    errs = {"occ_loss": cpu[0], "cov_loss": cpu[1],
+            "loss_rel": max(abs(a - b) / max(abs(b), 1e-30)
+                            for a, b in zip(card, cpu))}
+    if not (all(np.isfinite(card)) and cpu[0] > 0 and cpu[1] > 0
+            and errs["loss_rel"] <= 1e-3):
+        fail(f"the SCONE step on the card and on the CPU differ: {errs}")
+    errs.update(fp32_errors(out, ["occ", "vis"]))
+    return errs
+
+
+def median_ms(fn, reps=5):
+    """Median time of ``fn`` between CUDA events over ``reps`` calls after
+    one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), min(times), max(times)
+
+
+TRAIN_PHASES = ("decision", "capture", "depth_step", "scone_step",
+                "depth_replay", "scone_replay", "remap", "done")
+
+
+def phase_train():
+    """The online trainer as users run it: run_training with the default
+    training config at full widths on the 59,392-face scene (random weights
+    from its torch_seed). Epoch 0: TRAIN_POSES poses, a remap at pose
+    TRAIN_REMAP, memory trajectory slot 0. Then a second run resumes from
+    epoch 0's checkpoint and trains epoch 1 in slot 1, with depth replay
+    (n_memory_loops steps of n_memory_samples frames) and SCONE replay
+    (n_memory_scene_loops steps) from slot 0 after every pose. Launch
+    counts are set to 0 before the first run and read after the second.
+    Fails unless the losses are finite with a positive depth loss, the
+    three networks moved, both B3 kernels and rasterize_tiled launched,
+    the B3 backward once per SCONE step, each trajectory saved 1 + n_alpha
+    + poses x interpolation steps frames, and the checkpoint reloads. Then
+    one depth step (B 1) and one SCONE step on the card against the CPU."""
+    dev = resolve_device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_",
+                                     dir=_work_dir()) as tmp:
+        root = scene_scale_suite(os.path.join(tmp, "scenes"), SCENE_LEVELS)
+        wdir, mroot = os.path.join(tmp, "weights"), os.path.join(tmp, "mem")
+        p0, p1 = train_params(root, 1), train_params(root, 2)
+        print(f"[train] default training config: image {p0.image_height}x"
+              f"{p0.image_width}, ManyDepth {p0.n_depth} planes, proxies "
+              f"{p0.n_proxy_points}, seq_len {p0.seq_len}, interpolation "
+              f"steps {p0.n_interpolation_steps}, alphas {p0.alphas}, depth "
+              f"replay {p0.n_memory_loops} x {p0.n_memory_samples}, SCONE "
+              f"replay {p0.n_memory_scene_loops}, curriculum cells "
+              f"{p0.occ_curriculum_min_cells}..{p0.occ_curriculum_max_cells}",
+              flush=True)
+        init = create_macarons_model(p0, dev)
+        init_macarons_weights(init, seeded_generator(dev, p0.torch_seed))
+        init = {name: {k: v.detach().cpu().clone() for k, v in
+                       getattr(init, name).state_dict().items()}
+                for name in ("occ", "vis", "depth")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with StepRecorder() as rec:
+            _, losses0 = run_training(p0, weights_dir=wdir, memory_root=mroot,
+                                      device=dev, verbose=False,
+                                      on_phase=rec.on_phase)
+            t1 = time.perf_counter()
+            model, losses = run_training(p1, weights_dir=wdir,
+                                         memory_root=mroot, device=dev,
+                                         verbose=False, on_phase=rec.on_phase)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = read_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        mem = os.path.join(mroot, "synth_00", p0.memory_dir_name, "training")
+        n_frames = [len(os.listdir(os.path.join(mem, str(t), "frames")))
+                    for t in (0, 1)]
+        n_depths = len(os.listdir(os.path.join(mem, "0", "depths")))
+        reloaded = create_macarons_model(p1, dev)
+        meta = load_macarons(os.path.join(wdir, "unvalidated_smoke"),
+                             reloaded, create_optimizers(p1, reloaded))
+        # A loss peak in epoch 1 rolls the returned depth network back to
+        # epoch 0's checkpoint, after the resume point was saved.
+        peak = losses[1]["depth"] > (losses[0]["depth"]
+                                     + p1.get("loss_peak_threshold", 0.015))
+        depth_ref = create_macarons_model(p1, dev)
+        load_macarons(os.path.join(wdir, "epoch_0_smoke" if peak
+                                   else "unvalidated_smoke"), depth_ref)
+
+    for e in (0, 1):
+        for i in range(TRAIN_POSES):
+            spans = ", ".join(
+                f"{a} {rec.span(e, i, a, b):.2f}" for a, b in
+                zip(TRAIN_PHASES, TRAIN_PHASES[1:]))
+            print(f"[train] epoch {e} pose {i} (ms): {spans}", flush=True)
+    steps = {k: v for k, v in sorted(rec.steps.items(),
+                                     key=lambda kv: str(kv[0]))}
+    print(f"[train] epoch 0 {t1 - t0:.2f} s, epoch 1 (resumed) {t2 - t1:.2f} "
+          f"s; peak device memory {peak_gib:.2f} GiB; losses {losses}; "
+          f"optimizer steps (epoch, phase, network): {steps}; frames per "
+          f"trajectory {n_frames}, remap depths {n_depths}; launches "
+          f"{counts}", flush=True)
+
+    if losses[0] != losses0[0]:
+        fail("the resumed run lost epoch 0's losses")
+    for row in losses:
+        if not (all(np.isfinite(v) for v in row.values())
+                and row["depth"] > 0):
+            fail(f"losses not finite with a positive depth loss: {losses}")
+    for name, state in init.items():
+        now = getattr(model, name).state_dict()
+        if all(torch.equal(v, now[k].cpu()) for k, v in state.items()
+               if v.is_floating_point()):
+            fail(f"training left the {name} network as it was initialised")
+    for name in TRAIN_KERNELS:
+        if counts[name] <= 0:
+            fail(f"the train phase never launched the {name} kernel")
+    n_scone = sum(v for (_, _, kind), v in rec.steps.items()
+                  if kind == "scone")
+    if counts["sh_visibility_backward"] != n_scone:
+        fail(f"{counts['sh_visibility_backward']} launches of the B3 "
+             f"backward kernel for {n_scone} SCONE steps")
+    want = 1 + p0.n_alpha + TRAIN_POSES * p0.n_interpolation_steps
+    if n_frames != [want, want]:
+        fail(f"frames per trajectory {n_frames}, not {want}")
+    if (rec.count(1, "depth_replay", "depth")
+            != TRAIN_POSES * p1.n_memory_loops
+            or rec.count(1, "scone_replay", "scone")
+            != TRAIN_POSES * p1.n_memory_scene_loops):
+        fail(f"replay did not run as configured: {steps}")
+    same = [all(torch.equal(v, b.state_dict()[k])
+                for k, v in a.state_dict().items())
+            for a, b in ((model.occ, reloaded.occ), (model.vis, reloaded.vis),
+                         (model.depth, depth_ref.depth))]
+    if meta.get("epoch") != 2 or not all(same):
+        fail(f"the checkpoints do not reload the trained networks (occ, vis, "
+             f"depth{' rolled back at the loss peak' if peak else ''}: "
+             f"{same})")
+    print(f"[train] the resume point reloads (epoch {meta['epoch']}); loss "
+          f"peak rollback of the depth network: {peak}", flush=True)
+
+    gen = make_generator(torch.device("cuda"), SEED + 3)
+    # The last online depth step's own supervision batch, its first target.
+    _, batch, alpha = rec.depth_call
+    t0 = time.perf_counter()
+    derr = hold_depth_step(p1, model, {k: v[:1] for k, v in batch.items()},
+                           {k: v[:1] for k, v in alpha.items()})
+    t1 = time.perf_counter()
+    # The online SCONE step with the most proxies close to the surface.
+    srt, sargs, skw = max(rec.scone_calls, key=lambda c: int(c[1][4].sum()))
+    serr = hold_scone_step(p1, model, srt, sargs, skw, gen)
+    t2 = time.perf_counter()
+    print(f"[train] depth step B 1, card against CPU: {derr} "
+          f"({t1 - t0:.1f} s); SCONE step (n_cells_active 5), card against "
+          f"CPU: {serr} ({t2 - t1:.1f} s)", flush=True)
+
+    # The steps timed alone, on copies: the online depth step at B 4
+    # (forward, backward, AdamW) and the online SCONE step.
+    m = MacaronsModel(*(copy.deepcopy(n) for n in (model.occ, model.vis,
+                                                   model.depth)))
+    trt = MacaronsRuntime(p1, m, device=dev)
+    trt._tables = srt._tables
+    opts = create_optimizers(p1, m)
+    torch.cuda.reset_peak_memory_stats()
+    d_ms = median_ms(lambda: trt.depth_train_step(opts["depth"], batch,
+                                                  alpha, gen=gen))
+    d_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    s_ms = median_ms(lambda: trt.scone_train_step(opts["scone"], *sargs[1:],
+                                                  **dict(skw, gen=gen)))
+    s_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[train] depth step B {batch['images'].shape[0]} (forward, "
+          f"backward, AdamW) {d_ms[0]:.2f} ms ({d_ms[1]:.2f}-{d_ms[2]:.2f}, "
+          f"median of 5 between CUDA events), peak {d_peak:.2f} GiB; SCONE "
+          f"step {s_ms[0]:.2f} ms ({s_ms[1]:.2f}-{s_ms[2]:.2f}), peak "
+          f"{s_peak:.2f} GiB", flush=True)
+    return dict(counts=counts, n_cams=int(sargs[5].R.shape[0]),
+                seq_len=p1.seq_len)
+
+
+def _to(x, dev, dtype=None):
+    """``x`` (a tensor, a camera dataclass, a NamedTuple, tuple or dict of
+    tensors, or anything else) with its tensors on ``dev`` and, given a
+    ``dtype``, its floating tensors in it."""
     if isinstance(x, torch.Tensor):
-        return x.cpu()
+        x = x.to(dev)
+        return x.to(dtype) if dtype and x.is_floating_point() else x
+    if isinstance(x, dict):
+        return {k: _to(v, dev, dtype) for k, v in x.items()}
     if dataclasses.is_dataclass(x):
-        return dataclasses.replace(x, **{f.name: getattr(x, f.name).cpu()
+        return dataclasses.replace(x, **{f.name: _to(getattr(x, f.name), dev,
+                                                     dtype)
                                          for f in dataclasses.fields(x)})
+    if isinstance(x, tuple):
+        items = [_to(v, dev, dtype) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
     return x
 
 
@@ -773,7 +1229,7 @@ def phase_reference(gen, rt, model, args):
     if shv.sh_visibility.launches != before + 1:
         fail("the scorer on the card did not launch the sh_visibility kernel")
     vis_cpu = copy.deepcopy(model.vis).cpu()
-    on_cpu = scorer(vis_cpu, *map(_to_cpu, args), sample_idx=idx.cpu())
+    on_cpu = scorer(vis_cpu, *_to(args, "cpu"), sample_idx=idx.cpu())
     scale = float(on_cpu.abs().max())
     err = float((on_card - on_cpu).abs().max())
     print(f"[reference] {C} candidates scored on the card and on the CPU: max "
@@ -819,6 +1275,95 @@ def kernel_row(gen, launches, worst_err, c_pad, seq_len):
         "source": "macarons_tpu_torch/csrc/sh_visibility.cu",
         "replaces": "macarons_tpu/ops/pallas/sh_visibility.py:133",
         "launches": launches, "max_abs_err": max(worst_err, err),
+        "ms": dev_ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None, "shape": [B, C, L], "host_ms": host_ms,
+    }
+
+
+def hold_backward(p, h, x, sig, g):
+    """B3's backward through autograd on the card (the kernel) against the
+    plain backward on the same inputs, relative to the largest gradient.
+    Fails unless the kernel launched once and the output carries a grad_fn."""
+    h = h.detach().requires_grad_()
+    out = shv.sh_visibility(p, h, x, use_sigmoid=sig)
+    if out.grad_fn is None:
+        fail("sh_visibility on CUDA tensors carries no grad_fn")
+    before = shv.sh_visibility_backward.launches
+    grad, = torch.autograd.grad(out, h, g)
+    torch.cuda.synchronize()
+    if shv.sh_visibility_backward.launches != before + 1:
+        fail("the B3 backward kernel did not launch once per backward")
+    ref = shv.sh_visibility_backward_plain(p, x, out.detach(), g, sig)
+    return float((grad - ref).abs().max() / ref.abs().max())
+
+
+def phase_backward_kernel():
+    """B3's backward kernel against its plain version at the SCONE step's
+    shapes (4 visited cameras, one per candidate batch: (4, 1, 2048); one
+    shared sample: (1, 4, 2048)) and at the poles and the 1e6 pads, both
+    activations; and the wrapper refusing points that require grad. Own
+    generator: the trajectories after it draw as before."""
+    gen = make_generator(torch.device("cuda"), SEED + 4)
+    cases = []
+    for B, C, L in ((4, 1, 2048), (1, 4, 2048)):
+        for sig in (True, False):
+            cases.append((f"({B},{C},{L}) {'sigmoid' if sig else 'relu'}",
+                          sh_inputs(gen, B, C, L), sig))
+    pts, harm, X_cam = sh_inputs(gen, 2, 3, 300)
+    pts[:, :100, 0] = X_cam[:, :1, 0]
+    pts[:, :100, 2] = X_cam[:, :1, 2]
+    pts[:, 100:150, :3] = 1e6
+    for sig in (True, False):
+        cases.append((f"poles and pads {'sigmoid' if sig else 'relu'}",
+                      (pts, harm, X_cam), sig))
+    worst = 0.0
+    for name, (p, h, x), sig in cases:
+        g = torch.randn(p.shape[0], x.shape[1], p.shape[1], device="cuda",
+                        generator=gen)
+        err = hold_backward(p, h, x, sig, g)
+        worst = max(worst, err)
+        print(f"[kernel] sh_visibility_backward {name}: max |kernel - plain| "
+              f"{err:.3e} of max |grad|", flush=True)
+        if not np.isfinite(err) or err > BACKWARD_REL:
+            fail(f"sh_visibility_backward {name} differs from its plain "
+                 f"version by {err} of max |grad|")
+    try:
+        shv.sh_visibility(pts.detach().requires_grad_(), harm, X_cam)
+    except ValueError:
+        pass
+    else:
+        fail("sh_visibility accepted points that require grad")
+    return worst
+
+
+def backward_row(worst, B, C, L):
+    """B3's backward at the SCONE step's per-candidate shape (B, C, L);
+    its launches are the train phase's, filled in by the caller."""
+    gen = make_generator(torch.device("cuda"), SEED + 5)
+    p, h, x = sh_inputs(gen, B, C, L)
+    out = shv.sh_visibility(p, h, x)
+    g = torch.randn(B, C, L, device="cuda", generator=gen)
+    err = hold_backward(p, h, x, True, g)
+    host_ms = time_ms(lambda: shv.sh_visibility_backward(p, x, out, g))
+    plain_ms = time_ms(
+        lambda: shv.sh_visibility_backward_plain(p, x, out, g), 10)
+    t_ops = shv.backward_flops(B, C, L) / PEAK_FP32_FLOPS * 1e3
+    t_bytes = shv.backward_bytes_moved(B, C, L) / PEAK_BYTES_PER_S * 1e3
+    dev_ms, _ = profiled_device_ms(
+        lambda: shv.sh_visibility_backward(p, x, out, g),
+        "sh_visibility_backward_kernel")
+    print(f"[kernel] sh_visibility_backward ({B},{C},{L}): max |kernel - "
+          f"plain| {err:.3e} of max |grad|, kernel {dev_ms * 1e3:.2f} us "
+          f"(torch.profiler), {host_ms * 1e3:.2f} us per call (CUDA events, "
+          f"host launch included), plain {plain_ms * 1e3:.2f} us, bound "
+          f"{max(t_ops, t_bytes) * 1e3:.2f} us", flush=True)
+    return {
+        "name": "sh_visibility_backward", "route": "cuda",
+        "source": "macarons_tpu_torch/csrc/sh_visibility.cu",
+        "replaces": "macarons_tpu/ops/pallas/sh_visibility.py:133",
+        "launches": None, "max_abs_err": max(worst, err),
         "ms": dev_ms, "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -938,6 +1483,7 @@ def main():
           f"{torch.cuda.get_device_name(0)}", flush=True)
     phase_build()
     worst = phase_kernels(gen)
+    worst_backward = phase_backward_kernel()
     worst_raster = phase_raster_kernels(gen)
     small = phase_trajectory(gen, "trajectory", 0, ["sh_visibility"])
     phase_reference(gen, small["rt"], small["model"], small["call"])
@@ -950,6 +1496,16 @@ def main():
     rows = raster_rows(big["counts"], worst_raster, f9, size)
     rows.append(kernel_row(gen, big["counts"]["sh_visibility"], worst,
                            big["c_pad"], big["seq_len"]))
+    # B3's backward at the SCONE step's shape: the supervision window's
+    # cameras, one per candidate batch, and seq_len sampled points.
+    shape = train_params(None, 1)
+    backward = backward_row(worst_backward, shape.n_interpolation_steps, 1,
+                            shape.seq_len)
+    train = phase_train()
+    if [train["n_cams"], 1, train["seq_len"]] != backward["shape"]:
+        fail(f"the SCONE step ran B3 at {train}, not {backward['shape']}")
+    backward["launches"] = train["counts"]["sh_visibility_backward"]
+    rows.append(backward)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

@@ -25,6 +25,17 @@
 // distinct banks). Blocks of different cameras re-read the same tile, which
 // the 50 MB L2 serves.
 //
+// The backward kernel gives the gradient of the coefficients only (the points
+// and camera centres are not differentiated):
+//
+//   grad_harm[b, l, k] = sum_c g[b, c, l] act'(out[b, c, l]) Y_k(dir(X_cam[b, c] - pts[b, l]))
+//
+// with act' = out (1 - out) for sigmoid and (out > 0) for relu. One thread per
+// (batch, point) loops over the cameras, recomputes the 64 basis terms with
+// the forward's recurrences and clamps, and accumulates 64 sums in registers;
+// the block stages its (128, 64) result in shared memory and writes it with
+// coalesced stores, each output once and without atomics.
+//
 // The interface is plain C: the Python wrapper passes raw device pointers and
 // the current CUDA stream, and checks the returned cudaError_t.
 
@@ -75,32 +86,12 @@ __constant__ float c_norm[kNHarm] = {
 __constant__ float c_pmm[kMaxL] = {1.f, -1.f, 3.f, -15.f, 105.f, -945.f,
                                    10395.f, -135135.f};
 
-__global__ void __launch_bounds__(kBlock)
-sh_visibility_kernel(const float* __restrict__ pts, int pts_stride,
-                     const float* __restrict__ harm,
-                     const float* __restrict__ cam, float* __restrict__ out,
-                     int C, int L, int use_sigmoid) {
-  __shared__ float tile[kBlock * kRow];
-  const int b = blockIdx.z;
-  const int c = blockIdx.y;
-  const int l0 = blockIdx.x * kBlock;
-  const int n = min(kBlock, L - l0);
-
-  const float* hb = harm + (static_cast<size_t>(b) * L + l0) * kNHarm;
-  for (int i = threadIdx.x; i < n * kNHarm; i += kBlock) {
-    tile[(i / kNHarm) * kRow + (i % kNHarm)] = hb[i];
-  }
-  __syncthreads();
-
-  const int t = threadIdx.x;
-  if (t >= n) return;
-  const int l = l0 + t;
-  const float* p = pts + (static_cast<size_t>(b) * L + l) * pts_stride;
-  const float* xc = cam + (static_cast<size_t>(b) * C + c) * 3;
-
-  const float rx = xc[0] - p[0];
-  const float ry = xc[1] - p[1];
-  const float rz = xc[2] - p[2];
+// The 64 basis terms Y_k of the direction of (rx, ry, rz), in packing order,
+// each handed to term(k, y). The algebraic angles and clamps are the JAX
+// kernel's; both kernels call this, so they see the same basis.
+template <typename Term>
+__device__ __forceinline__ void for_each_basis_term(float rx, float ry,
+                                                    float rz, Term term) {
   const float r2 = rx * rx + ry * ry + rz * rz;
   const float inv_r = 1.0f / sqrtf(fmaxf(r2, 1e-20f));
   const float ct = fminf(fmaxf(ry * inv_r, -1.0f), 1.0f);
@@ -143,8 +134,6 @@ sh_visibility_kernel(const float* __restrict__ pts, int pts_stride,
     }
   }
 
-  const float* h = tile + t * kRow;
-  float acc = 0.0f;
   int k = 0;
 #pragma unroll
   for (int ll = 0; ll < kMaxL; ++ll) {
@@ -158,13 +147,88 @@ sh_visibility_kernel(const float* __restrict__ pts, int pts_stride,
       } else {
         y = c_norm[k] * sm[-m] * P[ll][-m];
       }
-      acc += h[k] * y;
+      term(k, y);
       ++k;
     }
   }
+}
 
+// sum_k h[k] Y_k(dir(rx, ry, rz)), summed in packing order.
+__device__ __forceinline__ float basis_dot(float rx, float ry, float rz,
+                                           const float* h) {
+  float acc = 0.0f;
+  for_each_basis_term(rx, ry, rz, [&](int k, float y) { acc += h[k] * y; });
+  return acc;
+}
+
+__global__ void __launch_bounds__(kBlock)
+sh_visibility_kernel(const float* __restrict__ pts, int pts_stride,
+                     const float* __restrict__ harm,
+                     const float* __restrict__ cam, float* __restrict__ out,
+                     int C, int L, int use_sigmoid) {
+  __shared__ float tile[kBlock * kRow];
+  const int b = blockIdx.z;
+  const int c = blockIdx.y;
+  const int l0 = blockIdx.x * kBlock;
+  const int n = min(kBlock, L - l0);
+
+  const float* hb = harm + (static_cast<size_t>(b) * L + l0) * kNHarm;
+  for (int i = threadIdx.x; i < n * kNHarm; i += kBlock) {
+    tile[(i / kNHarm) * kRow + (i % kNHarm)] = hb[i];
+  }
+  __syncthreads();
+
+  const int t = threadIdx.x;
+  if (t >= n) return;
+  const int l = l0 + t;
+  const float* p = pts + (static_cast<size_t>(b) * L + l) * pts_stride;
+  const float* xc = cam + (static_cast<size_t>(b) * C + c) * 3;
+
+  const float z = basis_dot(xc[0] - p[0], xc[1] - p[1], xc[2] - p[2],
+                            tile + t * kRow);
   out[(static_cast<size_t>(b) * C + c) * L + l] =
-      use_sigmoid ? 1.0f / (1.0f + expf(-acc)) : fmaxf(acc, 0.0f);
+      use_sigmoid ? 1.0f / (1.0f + expf(-z)) : fmaxf(z, 0.0f);
+}
+
+__global__ void __launch_bounds__(kBlock)
+sh_visibility_backward_kernel(const float* __restrict__ pts, int pts_stride,
+                              const float* __restrict__ cam,
+                              const float* __restrict__ out,
+                              const float* __restrict__ gout,
+                              float* __restrict__ gharm, int C, int L,
+                              int use_sigmoid) {
+  __shared__ float tile[kBlock * kRow];
+  const int b = blockIdx.y;
+  const int l0 = blockIdx.x * kBlock;
+  const int n = min(kBlock, L - l0);
+  const int t = threadIdx.x;
+
+  float acc[kNHarm];
+#pragma unroll
+  for (int k = 0; k < kNHarm; ++k) acc[k] = 0.0f;
+
+  if (t < n) {
+    const int l = l0 + t;
+    const float* p = pts + (static_cast<size_t>(b) * L + l) * pts_stride;
+    const float px = p[0], py = p[1], pz = p[2];
+    for (int c = 0; c < C; ++c) {
+      const size_t o = (static_cast<size_t>(b) * C + c) * L + l;
+      const float v = out[o];
+      const float dact = use_sigmoid ? v * (1.0f - v) : (v > 0.0f ? 1.0f : 0.0f);
+      const float gz = gout[o] * dact;
+      const float* xc = cam + (static_cast<size_t>(b) * C + c) * 3;
+      for_each_basis_term(xc[0] - px, xc[1] - py, xc[2] - pz,
+                          [&](int k, float y) { acc[k] += gz * y; });
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kNHarm; ++k) tile[t * kRow + k] = acc[k];
+  __syncthreads();
+
+  float* gb = gharm + (static_cast<size_t>(b) * L + l0) * kNHarm;
+  for (int i = t; i < n * kNHarm; i += kBlock) {
+    gb[i] = tile[(i / kNHarm) * kRow + (i % kNHarm)];
+  }
 }
 
 }  // namespace
@@ -178,5 +242,20 @@ extern "C" int macarons_sh_visibility(const float* pts, int pts_stride,
   sh_visibility_kernel<<<grid, kBlock, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       pts, pts_stride, harm, cam, out, C, L, use_sigmoid);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int macarons_sh_visibility_backward(const float* pts,
+                                               int pts_stride,
+                                               const float* cam,
+                                               const float* out,
+                                               const float* gout, float* gharm,
+                                               int B, int C, int L,
+                                               int use_sigmoid, void* stream) {
+  if (B == 0 || L == 0) return 0;
+  const dim3 grid((L + kBlock - 1) / kBlock, B);
+  sh_visibility_backward_kernel<<<grid, kBlock, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      pts, pts_stride, cam, out, gout, gharm, C, L, use_sigmoid);
   return static_cast<int>(cudaGetLastError());
 }

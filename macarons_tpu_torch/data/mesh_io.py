@@ -1,10 +1,11 @@
 """OBJ mesh IO on the host, with numpy (port of
-macarons_tpu/data/mesh_io.py without the mirroring hooks).
+macarons_tpu/data/mesh_io.py).
 
 Reads v/vt/f lines, per-vertex colours (``v x y z r g b``), fan-triangulates
 polygons, and bakes OBJ + MTL textures into a per-face texture atlas
 (F, R, R, 3) in PyTorch3D's ``TexturesAtlas`` layout
-(``load_obj(create_texture_atlas=True)``).
+(``load_obj(create_texture_atlas=True)``). ``mirror_mesh`` is the
+trainer's random mirroring.
 """
 
 from __future__ import annotations
@@ -213,3 +214,50 @@ def adjust_mesh(verts: np.ndarray, x_range: float = 1.0,
     if center:
         out = out - (out.min(0) + out.max(0)) / 2
     return out
+
+
+def _remap_atlas_winding_flip(atlas: np.ndarray) -> np.ndarray:
+    """Resample a (F, R, R, 3) per-face atlas for faces whose vertex order
+    was reversed, (v0, v1, v2) -> (v2, v1, v0): the barycentric roles of w0
+    and w2 swap. Texel (iy, ix) holds the colour at (w0 = iy / (R - 1),
+    w1 = ix / (R - 1)) after the simplex clip of ``bake_texture_atlas``; the
+    flipped face's texel takes the old colour at (w0 = w2, w1 = w1),
+    bilinearly."""
+    R = atlas.shape[1]
+    g = np.linspace(0.0, 1.0, R, dtype=np.float32)
+    w0 = np.repeat(g[:, None], R, axis=1)
+    w1 = np.repeat(g[None, :], R, axis=0)
+    total = w0 + w1
+    scale = np.where(total > 1.0, 1.0 / np.maximum(total, 1e-8), 1.0)
+    w0c = w0 * scale
+    w1c = w1 * scale
+    w2c = np.clip(1.0 - w0c - w1c, 0.0, 1.0)
+    gy = w2c * (R - 1)
+    gx = w1c * (R - 1)
+    y0 = np.floor(gy).astype(np.int64)
+    x0 = np.floor(gx).astype(np.int64)
+    y1 = np.minimum(y0 + 1, R - 1)
+    x1 = np.minimum(x0 + 1, R - 1)
+    wy = (gy - y0)[..., None]
+    wx = (gx - x0)[..., None]
+    out = (atlas[:, y0, x0] * (1 - wy) * (1 - wx)
+           + atlas[:, y0, x1] * (1 - wy) * wx
+           + atlas[:, y1, x0] * wy * (1 - wx)
+           + atlas[:, y1, x1] * wy * wx)
+    return out.astype(atlas.dtype)
+
+
+def mirror_mesh(mesh: Mesh, axes) -> Mesh:
+    """Mirror the vertices along ``axes``; an odd number of mirrors reverses
+    the winding, so the faces are flipped and the texture atlas remapped to
+    keep each face's colours."""
+    verts = mesh.verts.copy()
+    for a in axes:
+        verts[:, a] = -verts[:, a]
+    faces = mesh.faces.copy()
+    atlas = mesh.texture_atlas
+    if len(axes) % 2 == 1:
+        faces = faces[:, ::-1].copy()
+        if atlas is not None:
+            atlas = _remap_atlas_winding_flip(atlas)
+    return Mesh(verts, faces, mesh.vert_colors, atlas)

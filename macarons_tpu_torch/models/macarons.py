@@ -1,10 +1,18 @@
-"""The MACARONS bundle: SconeOcc, SconeVis and ManyDepth (port of
-macarons_tpu/models/macarons.py, inference only)."""
+"""The MACARONS bundle: SconeOcc, SconeVis and ManyDepth, their optimizers
+and checkpoints (port of macarons_tpu/models/macarons.py).
+
+A checkpoint ``<path>`` is ``<path>.pt`` (the networks' state dicts and,
+for the rolling resume point, the optimizers') beside ``<path>.json``, the
+JAX package's metadata. ``load_macarons`` also reads the JAX package's
+``<path>.msgpack``, weights only.
+"""
 
 from __future__ import annotations
 
+import json
 import math
-from typing import NamedTuple, Optional
+import os
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -72,3 +80,69 @@ def init_macarons_weights(model: MacaronsModel, gen: torch.Generator):
     if model.depth is not None:
         init_depth_weights(model.depth, gen)
     return model
+
+
+def create_optimizers(params: Params, model: MacaronsModel
+                      ) -> Dict[str, torch.optim.AdamW]:
+    """AdamW (weight decay 0.01, PyTorch's default and the JAX package's)
+    for the depth network and one for SconeOcc + SconeVis together. The
+    trainer writes the learning rate into ``param_groups`` every step."""
+    depth_lr = params.get("depth_learning_rate",
+                          params.get("learning_rate", 1e-4))
+    scone_lr = params.get("scone_learning_rate",
+                          params.get("learning_rate", 1e-4))
+    opts = {"scone": torch.optim.AdamW(
+        list(model.occ.parameters()) + list(model.vis.parameters()),
+        lr=scone_lr, weight_decay=0.01)}
+    if model.depth is not None:
+        opts["depth"] = torch.optim.AdamW(model.depth.parameters(),
+                                          lr=depth_lr, weight_decay=0.01)
+    return opts
+
+
+def checkpoint_exists(path: str) -> bool:
+    return os.path.exists(path + ".pt") or os.path.exists(path + ".msgpack")
+
+
+def save_macarons(path: str, model: MacaronsModel, metadata=None,
+                  opt_states: Optional[Dict] = None):
+    """``<path>.pt`` with the networks (and the optimizers, if given) and
+    ``<path>.json`` with ``metadata``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tree = {"occ": model.occ.state_dict(), "vis": model.vis.state_dict(),
+            "depth": (model.depth.state_dict() if model.depth is not None
+                      else None)}
+    if opt_states is not None:
+        tree.update({f"{k}_opt": v.state_dict()
+                     for k, v in opt_states.items()})
+    torch.save(tree, path + ".pt")
+    if metadata is not None:
+        with open(path + ".json", "w") as f:
+            json.dump(metadata, f, indent=2, default=float)
+
+
+def load_macarons(path: str, model: MacaronsModel,
+                  opt_states: Optional[Dict] = None) -> Dict:
+    """Load a checkpoint into ``model`` (and ``opt_states``, if given) and
+    return its metadata. ``<path>.pt`` is the port's; a JAX checkpoint
+    ``<path>.msgpack`` gives the weights only."""
+    if os.path.exists(path + ".pt"):
+        dev = next(model.occ.parameters()).device
+        tree = torch.load(path + ".pt", map_location=dev, weights_only=True)
+        model.occ.load_state_dict(tree["occ"])
+        model.vis.load_state_dict(tree["vis"])
+        if model.depth is not None and tree["depth"] is not None:
+            model.depth.load_state_dict(tree["depth"])
+        for k, opt in (opt_states or {}).items():
+            opt.load_state_dict(tree[f"{k}_opt"])
+    elif os.path.exists(path + ".msgpack"):
+        from ..utils.convert import load_macarons_weights
+
+        load_macarons_weights(model, path)
+    else:
+        raise FileNotFoundError(f"no checkpoint {path}.pt or {path}.msgpack")
+    meta = {}
+    if os.path.exists(path + ".json"):
+        with open(path + ".json") as f:
+            meta = json.load(f)
+    return meta

@@ -241,3 +241,23 @@ class ManyDepth(nn.Module):
                                         relative_R, relative_T)
         disps = self.depth_decoder(x, R, T, x_alpha, R_alpha, T_alpha)
         return (gt_pose, *disps)
+
+
+def ssim(x, y):
+    """SSIM distance map over reflect-padded 3x3 means, NHWC:
+    clamp((1 - SSIM) / 2, 0, 1)."""
+    C1 = 0.01 ** 2
+    C2 = 0.03 ** 2
+
+    def pool(v):
+        v = F.pad(_nchw(v), (1, 1, 1, 1), mode="reflect")
+        return _nhwc(F.avg_pool2d(v, 3, stride=1))
+
+    mu_x = pool(x)
+    mu_y = pool(y)
+    sigma_x = pool(x ** 2) - mu_x ** 2
+    sigma_y = pool(y ** 2) - mu_y ** 2
+    sigma_xy = pool(x * y) - mu_x * mu_y
+    n = (2 * mu_x * mu_y + C1) * (2 * sigma_xy + C2)
+    d = (mu_x ** 2 + mu_y ** 2 + C1) * (sigma_x + sigma_y + C2)
+    return torch.clamp((1 - n / d) / 2, 0.0, 1.0)

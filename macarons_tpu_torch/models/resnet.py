@@ -3,19 +3,49 @@ macarons_tpu/models/resnet.py).
 
 NCHW, PyTorch's layout; the submodules carry the names Flax gives their
 counterparts, so a Flax variables tree maps onto a ``state_dict`` by path
-(utils.convert.flax_to_torch). BatchNorm runs in eval mode on its running
-statistics: eps 1e-5, momentum 0.1 (Flax's momentum 0.9). Converting a
-torchvision resnet18 checkpoint waits for the depth pretrainer.
+(utils.convert.flax_to_torch). BatchNorm is Flax's (``FlaxBatchNorm2d``):
+eps 1e-5; in eval mode it normalises with the running statistics, in train
+mode with the batch's, and updates the running ones as Flax does. Converting
+a torchvision resnet18 checkpoint waits for the depth pretrainer.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 
-def batch_norm(features: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with Flax's training arithmetic.
+
+    Train mode normalises with the batch mean and the biased batch variance
+    E[x^2] - E[x]^2 (clipped at 0), as ``flax.linen.BatchNorm`` computes
+    them, and updates running = 0.9 running + 0.1 batch with that same
+    biased variance. ``nn.BatchNorm2d`` would update the running variance
+    with the unbiased one, so a converted checkpoint would train to other
+    statistics. Eval mode is ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(
+                self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                self.momentum * var)
+            self.num_batches_tracked += 1
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[None, :, None, None]) * mul[None, :, None, None]
+                + self.bias[None, :, None, None])
+
+
+def batch_norm(features: int) -> FlaxBatchNorm2d:
+    """Flax's BatchNorm(momentum=0.9, epsilon=1e-5): PyTorch's momentum is
+    the weight of the batch, 0.1."""
+    return FlaxBatchNorm2d(features, eps=1e-5, momentum=0.1)
 
 
 def conv3x3(in_features: int, features: int, strides: int = 1,

@@ -7,6 +7,14 @@ per candidate ``(C_pad, 1, L)`` and shared sample ``(1, C, L)``.
 A CUDA tensor goes to the hand-written kernel (csrc/sh_visibility.cu); a CPU
 tensor goes to ``compute_visibilities_plain``, which repeats the kernel's
 arithmetic with tensor ops. A failed build or launch raises.
+
+The visibility is differentiable in the coefficients only: the points and
+camera centres are proxy positions and camera centres, which no loss
+differentiates, and the wrapper raises if either requires grad. On CUDA
+tensors an autograd Function saves the output and its backward launches
+``sh_visibility_backward_kernel`` (the same source); on CPU tensors autograd
+differentiates the plain forward. ``sh_visibility_backward_plain`` is the
+backward kernel's plain twin.
 """
 
 from __future__ import annotations
@@ -15,7 +23,7 @@ import ctypes
 
 import torch
 
-from ..harmonics import sh_weighted_sum
+from ..harmonics import sh_basis, sh_weighted_sum
 from .build import load_library
 
 N_HARMONICS = 64
@@ -25,6 +33,10 @@ MAX_HARMONIC_RANK = 8
 # algebraic angles 17; Chebyshev recurrence 36; Legendre recurrences 154;
 # 64 basis terms times coefficients 248; sigmoid 4.
 FLOPS_PER_OUTPUT = 459
+# Float operations per (batch, camera, point) of the backward: the same
+# angles and recurrences 207, 64 basis terms times the scaled gradient and
+# their sums 248, the activation's derivative 3.
+BACKWARD_FLOPS_PER_PAIR = 458
 
 
 def compute_visibilities_plain(pts, harmonics, X_cam, use_sigmoid: bool = True):
@@ -34,19 +46,124 @@ def compute_visibilities_plain(pts, harmonics, X_cam, use_sigmoid: bool = True):
     return torch.sigmoid(z) if use_sigmoid else torch.relu(z)
 
 
-def _library():
-    lib = load_library("macarons_sh_visibility", "sh_visibility.cu")
-    fn = lib.macarons_sh_visibility
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+def sh_visibility_backward_plain(pts, X_cam, out, grad_out,
+                                 use_sigmoid: bool = True):
+    """The backward kernel's plain twin: grad_harmonics (B, L, 64) =
+    sum_c grad_out act'(out) Y(X_cam - pts), with act' = out (1 - out) for
+    sigmoid and (out > 0) for relu."""
+    rays = X_cam[:, :, None, :] - pts[:, None, :, :3]
+    dact = out * (1.0 - out) if use_sigmoid else (out > 0).to(out.dtype)
+    basis = sh_basis(rays, degree=MAX_HARMONIC_RANK)  # (B, C, L, 64)
+    return torch.einsum("bcl,bclk->blk", grad_out * dact, basis)
+
+
+_ARGTYPES = {
+    # pts, pts_stride, harm, cam, out, B, C, L, use_sigmoid, stream
+    "macarons_sh_visibility": [ctypes.c_void_p, ctypes.c_int]
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    # pts, pts_stride, cam, out, grad_out, grad_harm, B, C, L, use_sigmoid,
+    # stream
+    "macarons_sh_visibility_backward": [ctypes.c_void_p, ctypes.c_int]
+    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+}
+
+
+def _function(symbol: str):
+    fn = getattr(load_library("macarons_sh_visibility", "sh_visibility.cu"),
+                 symbol)
+    fn.argtypes = _ARGTYPES[symbol]
     fn.restype = ctypes.c_int
     return fn
 
 
 def build(verbose: bool = False):
-    """Compile the kernel now (``verbose`` prints the ptxas report)."""
+    """Compile both kernels now (``verbose`` prints the ptxas report)."""
     load_library("macarons_sh_visibility", "sh_visibility.cu", verbose=verbose)
+
+
+def _check(pts, harmonics, X_cam):
+    B, L, P = pts.shape
+    C = X_cam.shape[1]
+    if ((harmonics is not None and harmonics.shape != (B, L, N_HARMONICS))
+            or X_cam.shape != (B, C, 3) or P < 3):
+        raise ValueError(f"bad shapes pts {tuple(pts.shape)}, harmonics "
+                         f"{None if harmonics is None else tuple(harmonics.shape)}"
+                         f", X_cam {tuple(X_cam.shape)}")
+    for t in (pts, harmonics, X_cam):
+        if t is not None and (t.dtype != torch.float32
+                              or t.device != pts.device):
+            raise ValueError("sh_visibility takes float32 tensors on one device")
+    if C > 65535 or B > 65535:
+        raise ValueError(f"grid too large: B={B}, C={C}")
+
+
+def _launch(symbol: str, device, *args):
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _function(symbol)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
+
+
+def _forward_kernel(pts, harmonics, X_cam, use_sigmoid: bool):
+    B, L, P = pts.shape
+    C = X_cam.shape[1]
+    pts, harmonics, X_cam = (pts.contiguous(), harmonics.contiguous(),
+                             X_cam.contiguous())
+    out = torch.empty((B, C, L), dtype=torch.float32, device=pts.device)
+    _launch("macarons_sh_visibility", pts.device, pts.data_ptr(), P,
+            harmonics.data_ptr(), X_cam.data_ptr(), out.data_ptr(), B, C, L,
+            int(bool(use_sigmoid)))
+    sh_visibility.launches += 1
+    return out
+
+
+def sh_visibility_backward(pts, X_cam, out, grad_out, use_sigmoid: bool = True):
+    """Gradient of the coefficients: pts (B, L, P>=3), X_cam (B, C, 3), the
+    forward's output and its gradient (B, C, L) -> (B, L, 64). CPU tensors
+    take the plain twin; CUDA tensors launch the backward kernel (counted in
+    ``sh_visibility_backward.launches``)."""
+    if pts.device.type == "cpu":
+        return sh_visibility_backward_plain(pts, X_cam, out, grad_out,
+                                            use_sigmoid)
+    if pts.device.type != "cuda":
+        raise ValueError(f"unsupported device {pts.device}")
+    _check(pts, None, X_cam)
+    B, L, P = pts.shape
+    C = X_cam.shape[1]
+    if out.shape != (B, C, L) or grad_out.shape != (B, C, L):
+        raise ValueError(f"bad shapes out {tuple(out.shape)}, grad "
+                         f"{tuple(grad_out.shape)} for (B, C, L) = "
+                         f"{(B, C, L)}")
+    pts, X_cam = pts.contiguous(), X_cam.contiguous()
+    out, grad_out = out.contiguous(), grad_out.float().contiguous()
+    grad = torch.empty((B, L, N_HARMONICS), dtype=torch.float32,
+                       device=pts.device)
+    _launch("macarons_sh_visibility_backward", pts.device, pts.data_ptr(), P,
+            X_cam.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
+            grad.data_ptr(), B, C, L, int(bool(use_sigmoid)))
+    sh_visibility_backward.launches += 1
+    return grad
+
+
+sh_visibility_backward.launches = 0
+
+
+class _SHVisibility(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, pts, harmonics, X_cam, use_sigmoid):
+        out = _forward_kernel(pts, harmonics, X_cam, use_sigmoid)
+        ctx.save_for_backward(pts, X_cam, out)
+        ctx.use_sigmoid = use_sigmoid
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        pts, X_cam, out = ctx.saved_tensors
+        return (None, sh_visibility_backward(pts, X_cam, out, grad_out,
+                                             ctx.use_sigmoid), None, None)
 
 
 def sh_visibility(pts, harmonics, X_cam, use_sigmoid: bool = True):
@@ -55,35 +172,18 @@ def sh_visibility(pts, harmonics, X_cam, use_sigmoid: bool = True):
     pts (B, L, P>=3) float32, harmonics (B, L, 64) float32, X_cam (B, C, 3)
     float32 -> (B, C, L): act(sum_k harmonics[b, l, k] Y_k(X_cam[b, c] -
     pts[b, l])) with act = sigmoid or relu. CPU tensors take the plain twin;
-    CUDA tensors launch the kernel (counted in ``sh_visibility.launches``)."""
+    CUDA tensors launch the kernel (counted in ``sh_visibility.launches``),
+    differentiable in ``harmonics``. Raises if ``pts`` or ``X_cam`` requires
+    grad."""
+    if torch.is_grad_enabled() and (pts.requires_grad or X_cam.requires_grad):
+        raise ValueError("sh_visibility differentiates the coefficients "
+                         "only: pts and X_cam must not require grad")
     if pts.device.type == "cpu":
         return compute_visibilities_plain(pts, harmonics, X_cam, use_sigmoid)
     if pts.device.type != "cuda":
         raise ValueError(f"unsupported device {pts.device}")
-    B, L, P = pts.shape
-    C = X_cam.shape[1]
-    if (harmonics.shape != (B, L, N_HARMONICS) or X_cam.shape != (B, C, 3)
-            or P < 3):
-        raise ValueError(f"bad shapes pts {tuple(pts.shape)}, harmonics "
-                         f"{tuple(harmonics.shape)}, X_cam {tuple(X_cam.shape)}")
-    for t in (pts, harmonics, X_cam):
-        if t.dtype != torch.float32 or t.device != pts.device:
-            raise ValueError("sh_visibility takes float32 tensors on one device")
-    if C > 65535 or B > 65535:
-        raise ValueError(f"grid too large: B={B}, C={C}")
-    pts = pts.contiguous()
-    harmonics = harmonics.contiguous()
-    X_cam = X_cam.contiguous()
-    out = torch.empty((B, C, L), dtype=torch.float32, device=pts.device)
-    fn = _library()
-    with torch.cuda.device(pts.device):
-        stream = torch.cuda.current_stream(pts.device).cuda_stream
-        err = fn(pts.data_ptr(), P, harmonics.data_ptr(), X_cam.data_ptr(),
-                 out.data_ptr(), B, C, L, int(bool(use_sigmoid)), stream)
-    if err != 0:
-        raise RuntimeError(f"sh_visibility kernel launch failed: CUDA error {err}")
-    sh_visibility.launches += 1
-    return out
+    _check(pts, harmonics, X_cam)
+    return _SHVisibility.apply(pts, harmonics, X_cam, bool(use_sigmoid))
 
 
 sh_visibility.launches = 0
@@ -96,3 +196,13 @@ def flops(B: int, C: int, L: int) -> int:
 def bytes_moved(B: int, C: int, L: int, P: int = 3) -> int:
     """Each input read once and the output written once, float32."""
     return 4 * (B * L * P + B * L * N_HARMONICS + B * C * 3 + B * C * L)
+
+
+def backward_flops(B: int, C: int, L: int) -> int:
+    return BACKWARD_FLOPS_PER_PAIR * B * C * L
+
+
+def backward_bytes_moved(B: int, C: int, L: int, P: int = 3) -> int:
+    """pts, X_cam, the output and its gradient read once, grad_harmonics
+    written once, float32."""
+    return 4 * (B * L * P + B * C * 3 + 2 * B * C * L + B * L * N_HARMONICS)

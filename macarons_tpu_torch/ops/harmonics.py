@@ -95,10 +95,9 @@ def harmonics_from_directions(rays, degree: int = 8):
     return real_spherical_harmonics(math.pi / 2.0 - elev, azim, degree=degree)
 
 
-def sh_weighted_sum(rays, coeffs, degree: int = 8):
-    """sum_k coeffs[..., k] * Y_k(dir(rays)) without materialising the basis.
-
-    rays (..., 3); coeffs broadcastable to rays[..., 0].shape + (degree**2,)."""
+def _basis_terms(rays, degree: int):
+    """The basis terms Y_k of the directions of ``rays`` (..., 3), in
+    packing order, with the kernel's algebraic angles and clamps."""
     x, y, z = rays[..., 0], rays[..., 1], rays[..., 2]
     r2 = x * x + y * y + z * z
     inv_r = torch.rsqrt(torch.clamp(r2, min=1e-20))
@@ -115,12 +114,24 @@ def sh_weighted_sum(rays, coeffs, degree: int = 8):
         cos_m[m] = cphi * cos_m[m - 1] - sphi * sin_m[m - 1]
         sin_m[m] = sphi * cos_m[m - 1] + cphi * sin_m[m - 1]
 
-    acc = torch.zeros_like(ct)
-    for k, (l, m, norm) in enumerate(sh_norms(degree)):
+    for l, m, norm in sh_norms(degree):
         if m == 0:
-            Y = norm * P[(l, 0)]
+            yield norm * P[(l, 0)]
         else:
             ang = cos_m[abs(m)] if m > 0 else sin_m[abs(m)]
-            Y = norm * ang * P[(l, abs(m))]
+            yield norm * ang * P[(l, abs(m))]
+
+
+def sh_weighted_sum(rays, coeffs, degree: int = 8):
+    """sum_k coeffs[..., k] * Y_k(dir(rays)) without materialising the basis.
+
+    rays (..., 3); coeffs broadcastable to rays[..., 0].shape + (degree**2,)."""
+    acc = torch.zeros_like(rays[..., 0])
+    for k, Y in enumerate(_basis_terms(rays, degree)):
         acc = acc + coeffs[..., k] * Y
     return acc
+
+
+def sh_basis(rays, degree: int = 8):
+    """The basis of ``sh_weighted_sum`` materialised: (..., degree**2)."""
+    return torch.stack(list(_basis_terms(rays, degree)), dim=-1)

@@ -112,8 +112,10 @@ def view_harmonics_weights(degree: int, n_elev: int, n_azim: int, device):
 
 
 def compute_view_harmonics(view_state, weights):
-    """view_state (..., n_values) @ weights^T -> (..., H)."""
-    return torch.matmul(view_state, weights.transpose(0, 1))
+    """view_state (..., n_values) @ weights^T -> (..., H), in the view
+    state's floating type (the weights are float32 tables)."""
+    return torch.matmul(view_state,
+                        weights.transpose(0, 1).to(view_state.dtype))
 
 
 def sample_proxy_points(gen, X_world, preds, view_harmonics, n_sample: int,

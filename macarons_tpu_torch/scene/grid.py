@@ -14,6 +14,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.knn import pairwise_sqdist
+
 _BIG = 1e9
 
 
@@ -216,3 +218,65 @@ def scene_coverage(cfg: GridConfig, gt: GridState, rec: GridState,
     covered = _covered_mask_cellwise(gt, rec, eps)
     n_gt = gt.valid.sum()
     return covered.sum() / torch.clamp(n_gt, min=1), n_gt
+
+
+def all_points(state: GridState):
+    """Flattened (C * K, 3) points and their validity."""
+    return state.points.reshape(-1, 3), state.valid.reshape(-1)
+
+
+def min_dist_to_stored(cfg: GridConfig, state: GridState, queries,
+                       chunk: int = 2048):
+    """Distance from each query (Q, 3) to the nearest stored point of any
+    cell, in chunks of queries."""
+    pts, valid = all_points(state)
+    out = []
+    for s in range(0, queries.shape[0], chunk):
+        d2 = pairwise_sqdist(queries[s:s + chunk], pts)
+        out.append(torch.sqrt(torch.where(valid[None], d2, _BIG).amin(dim=-1)))
+    return torch.cat(out) if out else queries.new_zeros((0,))
+
+
+def _near_cloud(pts, pc, pm, eps, chunk: int = 4096):
+    """(N,) bool: stored point within eps of a valid point of the cloud."""
+    out = []
+    for s in range(0, pts.shape[0], chunk):
+        d2 = torch.where(pm[None], pairwise_sqdist(pts[s:s + chunk], pc), _BIG)
+        out.append(torch.sqrt(d2.amin(dim=-1)) < eps)
+    return torch.cat(out)
+
+
+def camera_coverage_gain(cfg: GridConfig, state: GridState, part_pc,
+                         part_mask, surface_epsilon=None):
+    """Stored points newly covered by a captured partial cloud (feature 0
+    holds the coveredness). Returns (gain, state with them marked 1)."""
+    eps = cfg.resolution if surface_epsilon is None else surface_epsilon
+    pts, valid = all_points(state)
+    feat = state.features.reshape(pts.shape[0], -1)
+    pm = part_mask & in_bounding_box(cfg, part_pc)
+    newly = _near_cloud(pts, part_pc, pm, eps) & valid & ~(feat[:, 0] > 0.0)
+    new_feat = feat.clone()
+    new_feat[:, 0] = torch.where(newly, 1.0, feat[:, 0])
+    return newly.float().sum(), state._replace(
+        features=new_feat.reshape(state.features.shape))
+
+
+def window_coverage_gains(cfg: GridConfig, state: GridState, part_pcs,
+                          part_masks, surface_epsilon=None):
+    """Per-frame supervision coverage gains of a capture window.
+
+    The window's partial clouds are already in ``state``, with coveredness
+    feature 0 except frame 0's points (covered). Frame f's gain counts the
+    uncovered stored points within eps of its own cloud (no marking between
+    frames); afterwards every stored point is covered.
+    part_pcs (F, P, 3), part_masks (F, P). Returns (gains (F,), state)."""
+    eps = cfg.resolution if surface_epsilon is None else surface_epsilon
+    pts, valid = all_points(state)
+    uncovered = valid & (state.features.reshape(pts.shape[0], -1)[:, 0] <= 0.0)
+    gains = torch.stack([
+        (_near_cloud(pts, pc, pm & in_bounding_box(cfg, pc), eps)
+         & uncovered).float().sum()
+        for pc, pm in zip(part_pcs, part_masks)])
+    new_feat = state.features.clone()
+    new_feat[..., 0] = 1.0
+    return gains, state._replace(features=new_feat)

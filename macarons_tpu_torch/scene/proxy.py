@@ -93,6 +93,14 @@ def update_supervision_occ(state: ProxyState, fov_mask, signed_distances,
                           supervision_occ=occ)
 
 
+def reset_supervision_occ(state: ProxyState) -> ProxyState:
+    """Supervision field back to ones and the carving counters to zero."""
+    return state._replace(
+        supervision_occ=torch.ones_like(state.supervision_occ),
+        n_inside_fov=torch.zeros_like(state.n_inside_fov),
+        n_behind_depth=torch.zeros_like(state.n_behind_depth))
+
+
 def camera_collides(state: ProxyState, x_min, x_max, X_current, X_target,
                     proxy_distance: float, n_interpolation_steps: int = 4,
                     oof_collides: bool = False,

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..models.scone import compute_visibilities
 from ..ops.geometry import FoVCamera
@@ -107,7 +108,8 @@ class OccupancyField:
     ``full_field`` covers every cell with an eligible proxy, in chunks of
     ``full_field_chunk`` (default ``max_cells``) cells; otherwise only the
     ``max_cells`` cells with most eligible proxies. Within a chunk, SconeOcc
-    runs on ``cell_batch`` cells per call."""
+    runs on ``cell_batch`` cells per call. Calling the field runs without
+    grad (inference); ``supervise`` is the training pass."""
 
     def __init__(self, occ_model, n_elev: int = 7, n_azim: int = 14,
                  degree: int = 8, k_for_knn: int = 16, max_cells: int = 32,
@@ -129,6 +131,58 @@ class OccupancyField:
                 self.degree, self.n_elev, self.n_azim, device)
         return self._weights[key]
 
+    def _cells(self, proxy, surface, tables, prediction_camera, elig_per_slot,
+               perm, cells, cell_ok):
+        """SconeOcc on the proxies of ``cells`` (M,) against the surface
+        points of their neighbourhoods. Returns the flat (slot ids,
+        occupancy, view harmonics, mask) of the M * K_cell proxy slots."""
+        c_slots = tables.slots[cells]
+        masks_in = elig_per_slot[cells]
+        M = cells.shape[0]
+        nb = tables.neighbor_ids[cells]
+        pc_world = surface.points[nb].reshape(M, -1, 3)
+        pc_mask = surface.valid[nb].reshape(M, -1)
+        centers_v = prediction_camera.world_to_view(
+            tables.centers[cells][None])[0]
+        diag = tables.pred_diag
+        Xn = normalize_points_in_prediction_box(
+            prediction_camera.world_to_view(proxy.points[c_slots]),
+            centers_v[:, None, :], diag)
+        pcn = normalize_points_in_prediction_box(
+            prediction_camera.world_to_view(pc_world),
+            centers_v[:, None, :], diag)
+        vhs = compute_view_harmonics(proxy.view_states[c_slots][..., perm],
+                                     self._vh_weights(proxy.points.device))
+        enough = pc_mask.sum(dim=-1) > 4 * self.k_for_knn
+
+        def run(pcn_b, Xn_b, vhs_b, m_b):
+            return self.occ_model(pcn_b, Xn_b, vhs_b, pc_mask=m_b)[..., 0]
+
+        outs = []
+        for s in range(0, M, self.cell_batch):
+            args = (pcn[s:s + self.cell_batch], Xn[s:s + self.cell_batch],
+                    vhs[s:s + self.cell_batch], pc_mask[s:s + self.cell_batch])
+            if torch.is_grad_enabled():
+                outs.append(checkpoint(run, *args, use_reentrant=False))
+            else:
+                outs.append(run(*args))
+        occs = torch.where(enough[:, None], torch.cat(outs), 0.0)
+        m = (masks_in & enough[:, None] & cell_ok[:, None]).reshape(-1)
+        return (c_slots.reshape(-1), occs.reshape(-1),
+                vhs.reshape(-1, self.n_harmonics), m)
+
+    def _eligible(self, proxy, tables, use_supervision_occ_mask,
+                  eligible_override=None):
+        fov_mask = proxy.out_of_field[:, 0] < 1.0
+        if eligible_override is not None:
+            eligible = eligible_override
+        elif use_supervision_occ_mask:
+            eligible = (proxy.supervision_occ[:, 0] > 0.0) & fov_mask
+        else:
+            eligible = fov_mask
+        elig_per_slot = eligible[tables.slots] & tables.slot_mask
+        return elig_per_slot, elig_per_slot.sum(dim=-1)
+
     @torch.no_grad()
     def __call__(self, proxy: ProxyState, surface: GridState,
                  tables: CellTables, prediction_camera: FoVCamera,
@@ -137,49 +191,22 @@ class OccupancyField:
         N = proxy.points.shape[0]
         C = tables.slots.shape[0]
         dev = proxy.points.device
-        fov_mask = proxy.out_of_field[:, 0] < 1.0
-        eligible = ((proxy.supervision_occ[:, 0] > 0.0) & fov_mask
-                    if use_supervision_occ_mask else fov_mask)
-        elig_per_slot = eligible[tables.slots] & tables.slot_mask
-        counts = elig_per_slot.sum(dim=-1)
+        elig_per_slot, counts = self._eligible(proxy, tables,
+                                               use_supervision_occ_mask)
         perm = view_space_permutation(prediction_camera, self.n_elev,
                                       self.n_azim)
-        weights = self._vh_weights(dev)
 
         proba = torch.zeros((N + 1,), device=dev)
         harmonics = torch.zeros((N + 1, self.n_harmonics), device=dev)
         pred_mask = torch.zeros((N + 1,), dtype=torch.bool, device=dev)
 
         def process(cells, cell_ok):
-            c_slots = tables.slots[cells]
-            masks_in = elig_per_slot[cells]
-            M = cells.shape[0]
-            nb = tables.neighbor_ids[cells]
-            pc_world = surface.points[nb].reshape(M, -1, 3)
-            pc_mask = surface.valid[nb].reshape(M, -1)
-            centers_v = prediction_camera.world_to_view(
-                tables.centers[cells][None])[0]
-            diag = tables.pred_diag
-            Xn = normalize_points_in_prediction_box(
-                prediction_camera.world_to_view(proxy.points[c_slots]),
-                centers_v[:, None, :], diag)
-            pcn = normalize_points_in_prediction_box(
-                prediction_camera.world_to_view(pc_world),
-                centers_v[:, None, :], diag)
-            vhs = compute_view_harmonics(proxy.view_states[c_slots][..., perm],
-                                         weights)
-            enough = pc_mask.sum(dim=-1) > 4 * self.k_for_knn
-            occs = torch.cat([
-                self.occ_model(pcn[s:s + self.cell_batch],
-                               Xn[s:s + self.cell_batch],
-                               vhs[s:s + self.cell_batch],
-                               pc_mask=pc_mask[s:s + self.cell_batch])[..., 0]
-                for s in range(0, M, self.cell_batch)])
-            occs = torch.where(enough[:, None], occs, 0.0)
-            m = (masks_in & enough[:, None] & cell_ok[:, None]).reshape(-1)
-            idx = c_slots.reshape(-1)[m]
-            proba[idx] = occs.reshape(-1)[m]
-            harmonics[idx] = vhs.reshape(-1, self.n_harmonics)[m]
+            slots, occs, vhs, m = self._cells(
+                proxy, surface, tables, prediction_camera, elig_per_slot,
+                perm, cells, cell_ok)
+            idx = slots[m]
+            proba[idx] = occs[m]
+            harmonics[idx] = vhs[m]
             pred_mask[idx] = True
 
         if full_field:
@@ -197,6 +224,47 @@ class OccupancyField:
         else:
             top_cells = torch.topk(counts.float(), min(self.max_cells, C)).indices
             process(top_cells, counts[top_cells] > 0)
+        return proba[:N, None], pred_mask[:N], harmonics[:N]
+
+    def supervise(self, proxy: ProxyState, surface: GridState,
+                  tables: CellTables, prediction_camera: FoVCamera,
+                  eligible_override=None, n_cells_active: Optional[int] = None,
+                  generator: Optional[torch.Generator] = None, noise=None):
+        """The supervision pass, differentiable in SconeOcc's weights:
+        ``max_cells`` cells drawn at random among those with an eligible
+        proxy (a uniform noise per cell ranks them; ``noise`` (C,) injects
+        it, else it is drawn from ``generator``), the first
+        ``n_cells_active`` of them kept (the curriculum). Eligible proxies
+        are ``eligible_override`` (N,) if given, else those with supervision
+        occupancy inside the field. SconeOcc's calls are recomputed in the
+        backward instead of keeping their activations.
+        Returns (proba (N, 1), prediction_mask (N,), harmonics (N, H))."""
+        N = proxy.points.shape[0]
+        C = tables.slots.shape[0]
+        dev = proxy.points.device
+        elig_per_slot, counts = self._eligible(proxy, tables, True,
+                                               eligible_override)
+        perm = view_space_permutation(prediction_camera, self.n_elev,
+                                      self.n_azim)
+        if noise is None:
+            noise = torch.rand((C,), generator=generator,
+                               device=generator.device)
+        rank_score = torch.where(counts > 0, noise.to(dev), -1.0)
+        top_cells = torch.topk(rank_score, min(self.max_cells, C)).indices
+        cell_ok = counts[top_cells] > 0
+        if n_cells_active is not None:
+            cell_ok = cell_ok & (torch.arange(top_cells.shape[0], device=dev)
+                                 < n_cells_active)
+        slots, occs, vhs, m = self._cells(
+            proxy, surface, tables, prediction_camera, elig_per_slot, perm,
+            top_cells, cell_ok)
+        idx = torch.where(m, slots, N)
+        proba = torch.zeros((N + 1,), device=dev).index_put(
+            (idx,), torch.where(m, occs, 0.0))
+        harmonics = torch.zeros((N + 1, self.n_harmonics), device=dev)
+        harmonics[idx] = vhs
+        pred_mask = torch.zeros((N + 1,), dtype=torch.bool, device=dev)
+        pred_mask[idx] = m
         return proba[:N, None], pred_mask[:N], harmonics[:N]
 
 
@@ -250,7 +318,9 @@ class CoverageGain:
     box_diag, cell_resolution, sensor_range, generator, sample_idx=None)
     -> gains (C,)``.
 
-    Per candidate (default): a fresh occupancy-weighted MC sample of seq_len
+    Calling the scorer runs without grad; ``gains`` is the same function
+    under the caller's grad mode. Per candidate (default): a fresh
+    occupancy-weighted MC sample of seq_len
     proxies inside each candidate's FoV, all candidates through SconeVis and
     the SH integral as one (C, 1, seq_len) batch. ``shared_sample``: one
     sample from the union of candidate FoVs, one SconeVis forward, a
@@ -279,12 +349,17 @@ class CoverageGain:
                                distance_th=self.distance_th)
 
     @torch.no_grad()
-    def __call__(self, vis_model, X_world, harmonics, occ, valid,
-                 cand_cameras: FoVCamera, cand_X_world,
-                 prediction_camera: FoVCamera, box_diag: float,
-                 cell_resolution: float, sensor_range: float,
-                 generator: Optional[torch.Generator] = None,
-                 sample_idx=None):
+    def __call__(self, *args, **kw):
+        """The scorer for a decision: ``gains`` without grad."""
+        return self.gains(*args, **kw)
+
+    def gains(self, vis_model, X_world, harmonics, occ, valid,
+              cand_cameras: FoVCamera, cand_X_world,
+              prediction_camera: FoVCamera, box_diag: float,
+              cell_resolution: float, sensor_range: float,
+              generator: Optional[torch.Generator] = None, sample_idx=None):
+        """Gains (C,), differentiable in SconeVis's weights when grad is
+        enabled (the SCONE step's coverage loss)."""
         C = cand_X_world.shape[0]
         cams = FoVCamera(cand_cameras.R, cand_cameras.T, cand_cameras.fov,
                          torch.full_like(cand_cameras.zfar, 0.01),
@@ -353,3 +428,22 @@ class CoverageGain:
         denom = torch.clamp(samp_in_fov.sum(dim=-1), min=1)
         gains = w.sum(dim=-1) / denom * fov_volumes
         return torch.where(samp_in_fov.any(dim=-1), gains, 0.0)
+
+
+def curriculum_sampling_distances(n_poses: int, proxy_distance: float,
+                                  cell_size) -> np.ndarray:
+    """Arctan ramp of the occupancy-supervision distance over a trajectory:
+    from 3x the proxy spacing up to 2x the surface-cell diagonal."""
+    min_d = 3.0 * proxy_distance
+    max_d = 2.0 * float(np.linalg.norm(np.asarray(cell_size)))
+    x = np.arctan(10.0 * (np.linspace(0.0, 1.0, n_poses) - 0.5))
+    x -= x.min()
+    x /= x.max()
+    return (min_d + x * (max_d - min_d)).astype(np.float32)
+
+
+def curriculum_sampling_cell_number(n_poses: int, min_cells: int = 5,
+                                    max_cells: int = 20) -> np.ndarray:
+    """Linear ramp of the number of supervised cells over a trajectory."""
+    n = min_cells + np.linspace(0.0, 1.0, n_poses) * (max_cells - min_cells)
+    return np.floor(n).astype(np.int32)

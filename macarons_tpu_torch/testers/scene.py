@@ -21,19 +21,21 @@ from ..data.scenes import SceneDataset
 from ..models.macarons import create_macarons_model, init_macarons_weights
 from ..ops.geometry import FoVCamera
 from ..ops.projection import points_in_fov_mask, project_depth_back_to_3D
-from ..parallel.nbv import pad_candidates
 from ..scene import grid as G
 from ..scene import proxy as P
 from ..scene import runtime as R
-from ..scene.camera import get_camera_RT
 from ..scene.depth_runtime import create_batch_for_depth_model
 from ..scene.memory import Memory
 from ..trainers.train_macarons import (
     MacaronsRuntime,
     SceneState,
+    backtrack_pose,
+    candidate_cameras,
     capture_and_save,
     mapping_update,
     move_and_capture,
+    nbv_choice,
+    scene_field,
     setup_scene,
 )
 from ..utils.device import make_generator, resolve_device
@@ -117,17 +119,10 @@ def compute_trajectory(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
         if on_pose is not None:
             on_pose(pose_i, "field")
         if policy == "nbv":
-            proba, pred_mask, harmonics = rt.occupancy_field(
-                scene.proxy, scene.surface_scene, cam.fov_camera_0)
-            if params.get("use_supervision_occ", False):
-                # Decoupling fixture: the carving pseudo-GT replaces the
-                # predicted field.
-                proba = scene.proxy.supervision_occ
-                pred_mask = scene.proxy.out_of_field[:, 0] < 1.0
-            scene.proxy = scene.proxy._replace(proba=torch.where(
-                pred_mask[:, None], proba, scene.proxy.proba))
-            field = R.assemble_scene_field(scene.proxy, proba, pred_mask,
-                                           harmonics)
+            # Decoupling fixture: use_supervision_occ puts the carving
+            # pseudo-GT in place of the predicted field.
+            field = scene_field(rt, scene,
+                                params.get("use_supervision_occ", False))
 
         if on_pose is not None:
             on_pose(pose_i, "score")
@@ -145,36 +140,22 @@ def compute_trajectory(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
                 valid_nbrs = np.stack(keep)
 
         if len(valid_nbrs) == 0:
-            hist = cam.cam_idx_history
-            next_idx = np.asarray(hist[-2] if len(hist) >= 2 else cam.cam_idx)
+            next_idx = backtrack_pose(cam)
         elif policy == "random":
             next_idx = valid_nbrs[int(rs.integers(len(valid_nbrs)))]
-        else:
-            poses = torch.as_tensor(cam.pose_space.pose_from_idx(valid_nbrs),
-                                    device=dev)
-            X_cand = poses[:, :3]
-            R_c, T_c = get_camera_RT(X_cand, poses[:, 3:])
-            cand_cams, X_cand, n_cand = pad_candidates(
-                FoVCamera.create(R_c, T_c, zfar=rt.dcfg.zfar), X_cand,
-                params.get("nbv_candidate_bucket", 8))
-            if policy == "carving":
-                C = X_cand.shape[0]
-                in_fov = points_in_fov_mask(
-                    scene.proxy.points[None].expand(
-                        C, *scene.proxy.points.shape),
-                    cand_cams, rt.H, rt.W, fov_range=rt.sensor_range)
-                unseen = scene.proxy.view_states.sum(dim=-1) == 0
-                gains = torch.where(in_fov & unseen[None],
-                                    scene.proxy.supervision_occ[None, :, 0],
-                                    0.0).sum(dim=-1)[:n_cand]
-            else:
-                box_diag = float(np.linalg.norm(
-                    np.asarray(scene.cfg.x_max) - np.asarray(scene.cfg.x_min)))
-                gains = rt.coverage_gains(
-                    *field, cand_cams, X_cand, cam.fov_camera_0, box_diag,
-                    scene.cfg.resolution, rt.sensor_range,
-                    generator=gen)[:n_cand]
+        elif policy == "carving":
+            cand_cams, X_cand, n_cand = candidate_cameras(rt, cam, valid_nbrs)
+            in_fov = points_in_fov_mask(
+                scene.proxy.points[None].expand(X_cand.shape[0],
+                                                *scene.proxy.points.shape),
+                cand_cams, rt.H, rt.W, fov_range=rt.sensor_range)
+            unseen = scene.proxy.view_states.sum(dim=-1) == 0
+            gains = torch.where(in_fov & unseen[None],
+                                scene.proxy.supervision_occ[None, :, 0],
+                                0.0).sum(dim=-1)[:n_cand]
             next_idx = valid_nbrs[int(torch.argmax(gains))]
+        else:
+            next_idx = nbv_choice(rt, scene, field, valid_nbrs, gen)
 
         if on_pose is not None:
             on_pose(pose_i, "capture")

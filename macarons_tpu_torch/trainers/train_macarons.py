@@ -1,26 +1,52 @@
-"""Scene setup, inference runtime and per-pose mapping (port of the tester
-subset of macarons_tpu/trainers/train_macarons.py; the online trainer is not
-ported yet).
+"""MACARONS online self-supervised training (port of
+macarons_tpu/trainers/train_macarons.py, its disk-memory single-scene path).
 
-A pose step captures frames, reads depth (ManyDepth, or perfect depth),
-backprojects it into the surface grid and carves the proxy field; the
-decision phase runs the occupancy field and the NBV scorer from
-scene.runtime.
+Each trajectory alternates, per pose:
+  1. the decision: depth inference on the newest frames, mapping and
+     carving, the occupancy field, and the NBV scorer over the valid
+     neighbours (argmax);
+  2. the interpolated move and its capture;
+  3. one depth optimizer step on the supervision window;
+  4. the SCONE supervision: the close-to-surface mask, the window's
+     mapping, the pseudo-GT coverage gains, and one SCONE optimizer step
+     with the predictions on the pre-window state and the occupancy target
+     from the post-carve field;
+then depth replay and SCONE replay from the disk memory and, at one pose, a
+remap. ``run_training`` adds the epochs: resume, the freeze and unfreeze
+transition, per-epoch random generators, validation, the four checkpoint
+flavours and the loss-peak rollback.
+
+The tester (testers/scene.py) uses the inference pieces: ``setup_scene``,
+``MacaronsRuntime``, ``capture_and_save``, ``move_and_capture`` and
+``mapping_update``.
 """
 
 from __future__ import annotations
 
+import copy
+import json
+import os
+import time
 import zlib
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..config import Params
-from ..data.mesh_io import Mesh, load_obj
-from ..data.scenes import SceneSettings, occupied_pose_grid
-from ..models.macarons import MacaronsModel
+from ..data.mesh_io import Mesh, load_obj, mirror_mesh
+from ..data.scenes import SceneDataset, SceneSettings, occupied_pose_grid
+from ..models import losses as L
+from ..models.macarons import (
+    MacaronsModel,
+    checkpoint_exists,
+    create_macarons_model,
+    create_optimizers,
+    init_macarons_weights,
+    load_macarons,
+    save_macarons,
+)
 from ..ops.geometry import FoVCamera
 from ..ops.projection import (
     points_in_fov_mask,
@@ -28,16 +54,21 @@ from ..ops.projection import (
     signed_distance_to_depth_maps,
 )
 from ..ops.sampling import random_subsample_mask, sample_points_on_mesh_surface
+from ..parallel.nbv import pad_candidates
 from ..scene import grid as G
 from ..scene import proxy as P
 from ..scene import runtime as R
-from ..scene.camera import Camera, PoseSpace
+from ..scene.camera import Camera, PoseSpace, get_camera_RT
 from ..scene.depth_runtime import (
     DepthBatchConfig,
+    create_batch_for_depth_model,
+    depth_loss,
     many_depth_inference,
     perfect_depth_inference,
 )
 from ..scene.memory import Memory
+from ..utils.device import resolve_device
+from ..utils.schedule import warmup_rate
 
 
 @dataclass
@@ -54,6 +85,9 @@ class SceneState:
     proxy_distance: float
     device: torch.device
     coverages: List[float] = field(default_factory=list)
+    # The newest captured frames on the device (oldest first), each a dict of
+    # (1, ...) tensors: the decision and supervision windows read them.
+    frames: List[Dict] = field(default_factory=list)
 
     def __post_init__(self):
         dev = self.device
@@ -75,14 +109,24 @@ def depth_cfg_from_params(params: Params) -> DepthBatchConfig:
             "use_future_frame_for_supervision", False),
         znear=params.get("znear", 0.5), zfar=params.get("zfar", 750.0),
         pose_factor=params.get("pose_factor", 100.0),
+        rotation_mode=params.get("rotation_mode", "angle"),
+        ssim_factor=params.get("ssim_factor", 0.85),
+        regularity_factor=params.get("regularity_factor", 0.01),
+        regularity_loss=params.get("regularity_loss", True),
         use_depth_mask=params.get("use_depth_mask", True),
+        padding_mode=params.get("padding_mode", "border"),
+        data_augmentation=params.get("data_augmentation", True),
+        jitter_probability=params.get("jitter_probability", 0.5),
+        symmetry_probability=params.get("symmetry_probability", 0.5),
     )
 
 
 def setup_scene(params: Params, scene_item: Dict, gen: torch.Generator,
-                device) -> SceneState:
+                device, mirrored_axes: Optional[List[int]] = None
+                ) -> SceneState:
     """Load the mesh (with its baked texture atlas, if the OBJ has one) and
-    settings; build the GT and surface grids, the proxy
+    settings, mirrored along ``mirrored_axes`` if given (the box and the
+    occupied poses with it); build the GT and surface grids, the proxy
     field (numpy-seeded by the scene name, as in the JAX package) and the
     camera."""
     mesh = load_obj(scene_item["obj_path"],
@@ -90,9 +134,13 @@ def setup_scene(params: Params, scene_item: Dict, gen: torch.Generator,
                     texture_atlas_size=params.get("texture_atlas_size", 4))
     mesh = Mesh(mesh.verts * params.get("scene_scale_factor", 1.0),
                 mesh.faces, mesh.vert_colors, mesh.texture_atlas)
+    if mirrored_axes:
+        mesh = mirror_mesh(mesh, mirrored_axes)
     s = scene_item["settings"]
-    x_min = np.asarray(s.scene_x_min, np.float32)
-    x_max = np.asarray(s.scene_x_max, np.float32)
+    x_min = np.asarray(s.scene_x_min, np.float32).copy()
+    x_max = np.asarray(s.scene_x_max, np.float32).copy()
+    for a in mirrored_axes or ():
+        x_min[a], x_max[a] = -x_max[a], -x_min[a]
     cfg = G.make_grid_config(
         tuple(x_min), tuple(x_max), s.grid_l, s.grid_w, s.grid_h,
         resolution=params.get("surface_cell_resolution",
@@ -114,6 +162,8 @@ def setup_scene(params: Params, scene_item: Dict, gen: torch.Generator,
     if scene_item.get("occupied_pose") is not None:
         occupied = occupied_pose_grid(scene_item["occupied_pose"], s.pose_l,
                                       s.pose_w, s.pose_h)
+        for a in mirrored_axes or ():
+            occupied = np.flip(occupied, axis=a).copy()
     camera = Camera(
         pose_space=PoseSpace(s.pose_x_min, s.pose_x_max, s.pose_l, s.pose_w,
                              s.pose_h, s.pose_n_elev, s.pose_n_azim),
@@ -134,14 +184,16 @@ def setup_scene(params: Params, scene_item: Dict, gen: torch.Generator,
 
 
 class MacaronsRuntime:
-    """Inference pieces shared across scenes: depth, occupancy field, NBV
-    scorer, with the config's widths."""
+    """The pieces shared across scenes, at the config's widths: depth,
+    the occupancy field (inference and supervision), the NBV scorer, the
+    optimizer steps and the learning-rate schedule."""
 
     def __init__(self, params: Params, model: MacaronsModel,
-                 cfg: G.GridConfig, table: R.CellIndexTable, device):
+                 cfg: Optional[G.GridConfig] = None,
+                 table: Optional[R.CellIndexTable] = None, device="cuda"):
         self.params = params
         self.model = model
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dcfg = depth_cfg_from_params(params)
         self.H = params.get("image_height", 256)
         self.W = params.get("image_width", 456)
@@ -150,18 +202,32 @@ class MacaronsRuntime:
         self.seq_len = params.get("seq_len", 2048)
         self.n_interpolation_steps = params.get("n_interpolation_steps", 4)
         ff_chunk = params.get("occ_full_field_chunk", None)
+        occ_kw = dict(n_elev=params.get("view_state_n_elev", 7),
+                      n_azim=params.get("view_state_n_azim", 14),
+                      degree=params.get("harmonic_degree", 8),
+                      k_for_knn=params.get("k_for_knn", 16))
         self._occ_field = R.OccupancyField(
-            model.occ, n_elev=params.get("view_state_n_elev", 7),
-            n_azim=params.get("view_state_n_azim", 14),
-            degree=params.get("harmonic_degree", 8),
-            k_for_knn=params.get("k_for_knn", 16),
-            max_cells=params.get("n_cell_per_occ_forward_pass", 12),
+            model.occ, max_cells=params.get("n_cell_per_occ_forward_pass", 12),
             cell_batch=params.get(
                 "occ_cell_batch",
                 max(params.get("n_cell_per_occ_forward_pass", 12),
                     ff_chunk or 0)),
-            full_field_chunk=ff_chunk)
-        self.bind_scene(cfg, table)
+            full_field_chunk=ff_chunk, **occ_kw)
+        # The supervision pass ranks up to occ_curriculum_max_cells random
+        # cells; the curriculum keeps the first n_cells_active of them.
+        self.occ_curriculum_min_cells = params.get("occ_curriculum_min_cells",
+                                                   5)
+        self.occ_curriculum_max_cells = params.get(
+            "occ_curriculum_max_cells",
+            max(20, params.get("n_cell_per_occ_forward_pass", 12)))
+        self._occ_field_sup = R.OccupancyField(
+            model.occ, max_cells=self.occ_curriculum_max_cells,
+            cell_batch=params.get("occ_supervision_cell_batch",
+                                  self.occ_curriculum_max_cells),
+            **occ_kw)
+        self._tables = None
+        if cfg is not None and table is not None:
+            self.bind_scene(cfg, table)
         self.coverage_gain = R.CoverageGain(
             seq_len=self.seq_len, image_height=self.H, image_width=self.W,
             min_occ=params.get("min_occ_for_proxy_points", 0.1),
@@ -170,6 +236,21 @@ class MacaronsRuntime:
             use_sigmoid=params.get("use_sigmoid", True),
             dist_factor_mode=params.get("distance_factor_th"),
             shared_sample=params.get("shared_sample_scoring", False))
+
+        # Warm-up to the max lr over the first steps of each optimizer, with
+        # the max lr dropped by lr_factor at each listed epoch.
+        self.schedule_lr = params.get("schedule_learning_rate", False)
+        self.lr_factor = params.get("lr_factor", 0.1)
+        self.depth_base_lr = self.depth_max_lr = params.get(
+            "depth_learning_rate", params.get("learning_rate", 1e-4))
+        self.scone_base_lr = self.scone_max_lr = params.get(
+            "scone_learning_rate", params.get("learning_rate", 1e-4))
+        self.depth_warmup = params.get("depth_warmup", params.get("warmup", 1))
+        self.scone_warmup = params.get("scone_warmup", params.get("warmup", 1))
+        self.depth_lr_epochs = list(params.get("depth_lr_epochs") or [])
+        self.scone_lr_epochs = list(params.get("scone_lr_epochs") or [])
+        self.depth_opt_steps = 0
+        self.scone_opt_steps = 0
 
     def bind_scene(self, cfg: G.GridConfig, table: R.CellIndexTable):
         self._tables = R.device_cell_tables(
@@ -192,6 +273,178 @@ class MacaronsRuntime:
     def coverage_gains(self, *args, **kw):
         return self.coverage_gain(self.model.vis, *args, **kw)
 
+    # -- learning-rate schedule ---------------------------------------------
+    def update_learning_rates(self, epoch: int):
+        """The max lr after the epoch drops listed up to ``epoch``."""
+        if not self.schedule_lr:
+            return
+        self.depth_max_lr = self.depth_base_lr * self.lr_factor ** sum(
+            1 for e in self.depth_lr_epochs if epoch >= e)
+        self.scone_max_lr = self.scone_base_lr * self.lr_factor ** sum(
+            1 for e in self.scone_lr_epochs if epoch >= e)
+
+    @staticmethod
+    def _set_lr(opt: torch.optim.Optimizer, lr: float):
+        for group in opt.param_groups:
+            group["lr"] = lr
+
+    def _next_depth_lr(self, opt):
+        if self.schedule_lr:
+            self.depth_opt_steps += 1
+            self._set_lr(opt, warmup_rate(
+                self.depth_max_lr, self.depth_opt_steps, self.depth_warmup))
+
+    def _next_scone_lr(self, opt):
+        if self.schedule_lr:
+            self.scone_opt_steps += 1
+            self._set_lr(opt, warmup_rate(
+                self.scone_max_lr, self.scone_opt_steps, self.scone_warmup))
+
+    # -- depth optimizer step ------------------------------------------------
+    def depth_train_step(self, opt, batch, alpha, gen=None, draws=None,
+                         online: bool = True):
+        """One depth optimizer step on a depth batch: ManyDepth in train mode
+        (batch statistics, the running ones updated), the depth loss with
+        augmentation (draws from ``gen`` or injected), backward, AdamW.
+        ``online=False`` computes the loss only and leaves the network as it
+        was. Returns (loss, depth, mask, error_mask) with depth and masks
+        detached."""
+        depth_model = self.model.depth
+        use_perfect = self.params.get("use_perfect_depth", False)
+        if use_perfect or depth_model is None:
+            with torch.no_grad():
+                loss, depth, mask, err, _, _ = depth_loss(
+                    None, self.dcfg, batch, alpha, use_perfect_depth=True,
+                    draws=draws, gen=gen)
+            return loss, depth, mask, err
+        if online:
+            self._next_depth_lr(opt)
+            depth_model.train()
+            try:
+                loss, depth, mask, err, _, _ = depth_loss(
+                    depth_model, self.dcfg, batch, alpha, draws=draws, gen=gen)
+            finally:
+                depth_model.eval()
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            return loss.detach(), depth, mask, err
+        # Loss only: batch statistics as in training, running ones kept.
+        stats = {k: v.clone() for k, v in depth_model.named_buffers()}
+        depth_model.train()
+        try:
+            with torch.no_grad():
+                loss, depth, mask, err, _, _ = depth_loss(
+                    depth_model, self.dcfg, batch, alpha, draws=draws,
+                    gen=gen)
+        finally:
+            depth_model.eval()
+            depth_model.load_state_dict(stats, strict=False)
+        return loss, depth, mask, err
+
+    # -- scone optimizer step ------------------------------------------------
+    def scone_losses(self, proxy, surface, prediction_camera, close_mask,
+                     visited_cams, visited_X, supervision_gains, field,
+                     n_supervision: int, box_diag: float,
+                     cell_resolution: float, n_cells_active: int, sup_occ,
+                     gen=None, cell_noise=None, sample_idx=None):
+        """SCONE's two losses under grad: the occupancy MSE of the supervision
+        pass on ``proxy``/``surface`` against ``sup_occ`` (summed over the
+        predicted proxies, over n_supervision), and the uncentered L1 of the
+        visited cameras' predicted coverage gains against
+        ``supervision_gains``. ``cell_noise`` and ``sample_idx`` inject the
+        cell ranking and the MC sample. Returns (occ_loss, cov_loss)."""
+        proba, pred_mask, _ = self._occ_field_sup.supervise(
+            proxy, surface, self._tables, prediction_camera,
+            eligible_override=close_mask, n_cells_active=n_cells_active,
+            generator=gen, noise=cell_noise)
+        err = torch.where(pred_mask[:, None], (proba - sup_occ) ** 2, 0.0)
+        n_pred = pred_mask.sum()
+        occ_loss = err.sum() / torch.clamp(n_pred, min=1) * n_pred \
+            / n_supervision
+        gains = self.coverage_gain.gains(
+            self.model.vis, *field, visited_cams, visited_X,
+            prediction_camera, box_diag, cell_resolution, self.sensor_range,
+            generator=gen, sample_idx=sample_idx)
+        cov_loss = L.uncentered_l1(gains.reshape(1, -1, 1),
+                                   supervision_gains.reshape(1, -1, 1))
+        return occ_loss, cov_loss
+
+    def scone_train_step(self, opt, proxy, surface, prediction_camera,
+                         close_mask, visited_cams, visited_X,
+                         supervision_gains, field, n_supervision: int,
+                         box_diag: float, cell_resolution: float,
+                         n_cells_active: Optional[int] = None, sup_occ=None,
+                         gen=None, cell_noise=None, sample_idx=None):
+        """One SCONE optimizer step (SconeOcc and SconeVis, one AdamW).
+        ``proxy``/``surface`` are the states the predictions run on;
+        ``sup_occ`` (N, 1) is the occupancy target (default the proxies'
+        own supervision field). Returns (loss, occ_loss, cov_loss)."""
+        self._next_scone_lr(opt)
+        if n_cells_active is None:
+            n_cells_active = self.occ_curriculum_max_cells
+        if sup_occ is None:
+            sup_occ = proxy.supervision_occ
+        occ_loss, cov_loss = self.scone_losses(
+            proxy, surface, prediction_camera, close_mask, visited_cams,
+            visited_X, supervision_gains, field, n_supervision, box_diag,
+            cell_resolution, n_cells_active, sup_occ, gen, cell_noise,
+            sample_idx)
+        loss = occ_loss + cov_loss
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach(), occ_loss.detach(), cov_loss.detach()
+
+    def scone_supervise_step(self, opt, scene: SceneState, R0, T0, depth,
+                             mask, err_mask, batch_R, batch_T, field, gen,
+                             box_diag: float, surface_distance: float,
+                             vs_distance: Optional[float] = None,
+                             n_cells_active: Optional[int] = None,
+                             carving_tolerance: float = 0.0,
+                             score_threshold: float = 1.0,
+                             train: bool = True, cell_noise=None,
+                             sample_idx=None):
+        """The supervision phase of a pose: the close-to-surface mask on the
+        pre-window state, the window's mapping and carving (its frame 0
+        arrives covered), the pseudo-GT coverage gains of the window, and,
+        with ``train``, one SCONE step whose predictions run on the
+        pre-window state and whose occupancy target is the post-carve
+        field. Updates ``scene``. Returns (loss, occ_loss, cov_loss), zeros
+        without ``train``."""
+        params = self.params
+        if vs_distance is None:
+            vs_distance = surface_distance
+        pre_proxy, pre_surface = scene.proxy, scene.surface_scene
+        pre_oof = pre_proxy.out_of_field[:, 0] < 1.0
+        close = close_mask(self, pre_proxy.points, depth, mask, batch_R,
+                           batch_T, surface_distance)
+        fill = torch.zeros((depth.shape[0],), device=depth.device)
+        fill[0] = 1.0
+        pcs, valids = mapping_update(
+            self, scene, depth, mask, err_mask, batch_R, batch_T, gen,
+            carving_tolerance=carving_tolerance,
+            score_threshold=score_threshold, fill_feats=fill,
+            surface_distance=vs_distance)
+        sup_gains, scene.surface_scene = G.window_coverage_gains(
+            scene.cfg, scene.surface_scene, pcs, valids,
+            surface_epsilon=params.get("surface_epsilon"))
+        close = close & pre_oof
+        if not train:
+            zero = torch.zeros((), device=depth.device)
+            return zero, zero, zero
+        cams = FoVCamera.create(batch_R, batch_T, zfar=self.dcfg.zfar)
+        return self.scone_train_step(
+            opt, pre_proxy, pre_surface,
+            FoVCamera.create(R0, T0, zfar=self.dcfg.zfar), close, cams,
+            cams.camera_center(), sup_gains, field,
+            n_supervision=params.get(
+                "n_proxy_point_for_occupancy_supervision", 6000),
+            box_diag=box_diag, cell_resolution=scene.cfg.resolution,
+            n_cells_active=n_cells_active,
+            sup_occ=scene.proxy.supervision_occ, gen=gen,
+            cell_noise=cell_noise, sample_idx=sample_idx)
+
 
 def capture_and_save(scene: SceneState, memory: Memory, memory_path: str,
                      lights_intensity: float = 1.0):
@@ -208,7 +461,8 @@ def capture_and_save(scene: SceneState, memory: Memory, memory_path: str,
 def move_and_capture(scene: SceneState, memory: Memory, memory_path: str,
                      next_idx):
     """Interpolated move to next_idx; all n_interpolation_steps frames are
-    rendered as one camera batch and saved one file each."""
+    rendered as one camera batch and saved one file each (one copy to the
+    host per array)."""
     cam = scene.camera
     Rs, Ts = [], []
     for step in range(1, cam.n_interpolation_steps + 1):
@@ -220,36 +474,44 @@ def move_and_capture(scene: SceneState, memory: Memory, memory_path: str,
     images, depth, mask = cam.capture_image(
         scene.verts_dev, scene.faces_dev, vert_colors=scene.colors_dev,
         fov_camera=batch_cam, texture_atlas=scene.atlas_dev)
-    for i in range(images.shape[0]):
-        memory.save_frame(memory_path, base + i, images[i:i + 1],
-                          depth[i:i + 1], mask[i:i + 1], batch_cam.R[i:i + 1],
-                          batch_cam.T[i:i + 1], cam.zfar)
+    memory.save_frame_batch(memory_path, base, images, depth, mask,
+                            batch_cam.R, batch_cam.T, cam.zfar)
     return images, depth, mask, batch_cam
 
 
 def mapping_update(rt: MacaronsRuntime, scene: SceneState, depth, mask,
                    err_mask, R_b, T_b, gen: torch.Generator,
                    carving_tolerance: float = 0.0,
-                   score_threshold: float = 1.0):
+                   score_threshold: float = 1.0, fill_feats=None,
+                   surface_distance: Optional[float] = None):
     """Per frame: backproject the depth, insert a random subset of its valid
-    pixels into the surface grid, then update the proxies' view states,
-    carving counters and out-of-field flags."""
+    pixels into the surface grid (with coveredness feature ``fill_feats``
+    (F,), default 1), then update the proxies' view states (surface test at
+    ``surface_distance``, default 3 proxy spacings), carving counters and
+    out-of-field flags. Returns the inserted clouds and their masks
+    ((F, n_keep, 3), (F, n_keep))."""
     params = rt.params
     n_keep = max(int(rt.H * rt.W * scene.camera.gathering_factor), 16)
     n_elev = params.get("view_state_n_elev", 7)
     n_azim = params.get("view_state_n_azim", 14)
-    surface_distance = 3.0 * scene.proxy_distance
+    if surface_distance is None:
+        surface_distance = 3.0 * scene.proxy_distance
+    if fill_feats is None:
+        fill_feats = torch.ones((depth.shape[0],), device=depth.device)
     zfar = rt.dcfg.zfar
     surface, proxy = scene.surface_scene, scene.proxy
-    for d, m, e, R1, T1 in zip(depth, mask.bool(), err_mask.bool(), R_b, T_b):
+    pcs, valids = [], []
+    for d, m, e, R1, T1, fv in zip(depth, mask.bool(), err_mask.bool(), R_b,
+                                   T_b, fill_feats):
         cam = FoVCamera.create(R1[None], T1[None], zfar=zfar)
         pts, pmask = project_depth_back_to_3D(d[None], cam)
         good = pmask[0] & m.reshape(-1) & e.reshape(-1)
         idx, valid = random_subsample_mask(gen, good, n_keep)
-        feats = torch.ones((n_keep, surface.features.shape[-1]),
-                           device=depth.device)
+        feats = fv.expand(n_keep, surface.features.shape[-1])
         surface = G.fill_cells(scene.cfg, surface, gen, pts[0][idx], valid,
                                features=feats)
+        pcs.append(pts[0][idx])
+        valids.append(valid)
         fov = points_in_fov_mask(proxy.points[None], cam, rt.H, rt.W,
                                  fov_range=rt.sensor_range)[0]
         sd = signed_distance_to_depth_maps(proxy.points, d[None], m[None],
@@ -263,3 +525,654 @@ def mapping_update(rt: MacaronsRuntime, scene: SceneState, depth, mask,
         proxy = P.update_out_of_field(proxy, fov)
     scene.surface_scene = surface
     scene.proxy = proxy
+    return torch.stack(pcs), torch.stack(valids)
+
+
+def close_mask(rt: MacaronsRuntime, points, depth, mask, R_b, T_b,
+               surface_distance: float):
+    """Proxies within ``surface_distance`` of a frame's depth surface, frame
+    by frame; a point in the FoV of several frames takes the last one's
+    answer."""
+    close = torch.zeros((points.shape[0],), dtype=torch.bool,
+                        device=points.device)
+    for d, m, R1, T1 in zip(depth, mask.bool(), R_b, T_b):
+        cam = FoVCamera.create(R1[None], T1[None], zfar=rt.dcfg.zfar)
+        fov = points_in_fov_mask(points[None], cam, rt.H, rt.W,
+                                 fov_range=rt.sensor_range)[0]
+        sd = signed_distance_to_depth_maps(points, d[None], m[None], cam,
+                                           rt.dcfg.zfar)[0]
+        close = torch.where(fov, torch.abs(sd[:, 0]) < surface_distance,
+                            close)
+    return close
+
+
+# ---------------------------------------------------------------------------
+# The pose loop
+# ---------------------------------------------------------------------------
+
+
+def push_frames(rt: MacaronsRuntime, scene: SceneState, images, depth, mask,
+                R, T):
+    """Append captured frames to the scene's device window, keeping the
+    newest n_interpolation_steps + max(n_alpha_for_supervision, n_alpha)."""
+    for i in range(images.shape[0]):
+        scene.frames.append({"images": images[i:i + 1], "zbuf": depth[i:i + 1],
+                             "mask": mask[i:i + 1], "R": R[i:i + 1],
+                             "T": T[i:i + 1]})
+    keep = rt.n_interpolation_steps + max(rt.dcfg.n_alpha_for_supervision,
+                                          rt.dcfg.n_alpha)
+    del scene.frames[:-keep]
+
+
+def window_frames(rt: MacaronsRuntime, scene: SceneState, n: int) -> Dict:
+    """The newest ``n`` frames of the window, stacked as
+    Memory.load_frame_sequence stacks them."""
+    frames = scene.frames[-n:]
+    out = {k: torch.cat([f[k] for f in frames]) for k in frames[0]}
+    out["zfar"] = torch.full((n,), float(rt.dcfg.zfar), device=rt.device)
+    return out
+
+
+def start_trajectory(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
+                     memory_path: str, rs: np.random.Generator,
+                     start_idx=None):
+    """A random valid start pose (unless given) and its 1 + n_alpha
+    captures, saved to the memory and kept in the window."""
+    cam = scene.camera
+    if start_idx is None:
+        start_idx = cam.get_random_valid_pose(rs, scene.verts_dev,
+                                              proxy_points=scene.proxy.points)
+    cam.initialize(np.asarray(start_idx))
+    scene.frames = []
+    for _ in range(1 + rt.dcfg.n_alpha):
+        images, depth, mask = capture_and_save(scene, memory, memory_path)
+        push_frames(rt, scene, images, depth, mask, cam.fov_camera.R,
+                    cam.fov_camera.T)
+
+
+def _phase(on_phase, pose_i, name):
+    if on_phase is not None:
+        on_phase(pose_i, name)
+
+
+def scene_field(rt: MacaronsRuntime, scene: SceneState,
+                use_supervision_occ: bool = False):
+    """The occupancy field at the prediction camera ``fov_camera_0`` (the
+    carving pseudo-GT in its place with ``use_supervision_occ``), written
+    into the proxies' proba. Returns the scene field for the scorer."""
+    proba, pred_mask, harmonics = rt.occupancy_field(
+        scene.proxy, scene.surface_scene, scene.camera.fov_camera_0)
+    if use_supervision_occ:
+        proba = scene.proxy.supervision_occ
+        pred_mask = scene.proxy.out_of_field[:, 0] < 1.0
+    scene.proxy = scene.proxy._replace(proba=torch.where(
+        pred_mask[:, None], proba, scene.proxy.proba))
+    return R.assemble_scene_field(scene.proxy, proba, pred_mask, harmonics)
+
+
+def backtrack_pose(cam: Camera) -> np.ndarray:
+    """A lattice dead end: the previous pose, or the current one."""
+    hist = cam.cam_idx_history
+    return np.asarray(hist[-2] if len(hist) >= 2 else cam.cam_idx)
+
+
+def candidate_cameras(rt: MacaronsRuntime, cam: Camera, valid_nbrs):
+    """The cameras of the valid neighbour poses, padded to the bucket.
+    Returns (cameras, centres, number of real candidates)."""
+    poses = torch.as_tensor(cam.pose_space.pose_from_idx(valid_nbrs),
+                            device=rt.device)
+    R_c, T_c = get_camera_RT(poses[:, :3], poses[:, 3:])
+    return pad_candidates(FoVCamera.create(R_c, T_c, zfar=rt.dcfg.zfar),
+                          poses[:, :3],
+                          rt.params.get("nbv_candidate_bucket", 8))
+
+
+def nbv_choice(rt: MacaronsRuntime, scene: SceneState, fld, valid_nbrs,
+               gen: torch.Generator) -> np.ndarray:
+    """The valid neighbour with the largest SconeVis coverage gain."""
+    cam = scene.camera
+    cand_cams, X_cand, n_cand = candidate_cameras(rt, cam, valid_nbrs)
+    box_diag = float(np.linalg.norm(np.asarray(scene.cfg.x_max)
+                                    - np.asarray(scene.cfg.x_min)))
+    gains = rt.coverage_gains(*fld, cand_cams, X_cand, cam.fov_camera_0,
+                              box_diag, scene.cfg.resolution,
+                              rt.sensor_range, generator=gen)[:n_cand]
+    return valid_nbrs[int(torch.argmax(gains))]
+
+
+def decide(rt: MacaronsRuntime, scene: SceneState, gen: torch.Generator,
+           warmup_phase: bool = False):
+    """The decision phase: depth inference on the newest 1 + n_alpha
+    frames, mapping and carving, the occupancy field (the carving pseudo-GT
+    in the warm-up phase), and the NBV scorer over the valid neighbours.
+    Returns (next pose index, scene field)."""
+    params = rt.params
+    cam = scene.camera
+    batch, alpha = create_batch_for_depth_model(
+        rt.dcfg, window_frames(rt, scene, 1 + rt.dcfg.n_alpha), "inference",
+        device=rt.device)
+    depth, mask, err_mask = rt.apply_depth_inference(batch, alpha)
+    mapping_update(rt, scene, depth, mask, err_mask, batch["R"], batch["T"],
+                   gen, carving_tolerance=params.get("carving_tolerance", 0.0),
+                   score_threshold=params.get("score_threshold", 1.0))
+    fld = scene_field(rt, scene, use_supervision_occ=warmup_phase)
+    valid_nbrs = cam.get_valid_neighbors(cam.get_neighboring_poses(),
+                                         scene.verts_dev)
+    if len(valid_nbrs) == 0:
+        return backtrack_pose(cam), fld
+    return nbv_choice(rt, scene, fld, valid_nbrs, gen), fld
+
+
+def nbv_loop_step(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
+                  memory_path: str, opts: Dict, gen: torch.Generator,
+                  freeze_scone: bool = False, warmup_phase: bool = False,
+                  online_learning: bool = True,
+                  surface_distance: Optional[float] = None,
+                  n_cells_active: Optional[int] = None,
+                  on_phase: Optional[Callable] = None, pose_i: int = 0):
+    """One NBV iteration: decide, move and capture, one depth step on the
+    supervision window, the SCONE supervision. ``on_phase(pose_i, name)``
+    is called before "decision", "capture", "depth_step" and "scone_step".
+    Returns the losses {"depth", "occ", "cov"} as tensors."""
+    params = rt.params
+    cam = scene.camera
+    if surface_distance is None:
+        surface_distance = 3.0 * scene.proxy_distance
+    cam.fov_camera_0 = cam.fov_camera
+    R0, T0 = cam.fov_camera_0.R, cam.fov_camera_0.T
+    box_diag = float(np.linalg.norm(np.asarray(scene.cfg.x_max)
+                                    - np.asarray(scene.cfg.x_min)))
+
+    _phase(on_phase, pose_i, "decision")
+    next_idx, fld = decide(rt, scene, gen, warmup_phase)
+
+    _phase(on_phase, pose_i, "capture")
+    images, depth_c, mask_c, batch_cam = move_and_capture(
+        scene, memory, memory_path, next_idx)
+    push_frames(rt, scene, images, depth_c, mask_c, batch_cam.R, batch_cam.T)
+
+    _phase(on_phase, pose_i, "depth_step")
+    batch, alpha = create_batch_for_depth_model(
+        rt.dcfg, window_frames(
+            rt, scene,
+            rt.n_interpolation_steps + rt.dcfg.n_alpha_for_supervision),
+        "supervision", device=rt.device)
+    depth_loss_v, depth, mask, err_mask = rt.depth_train_step(
+        opts.get("depth"), batch, alpha, gen=gen, online=online_learning)
+
+    _phase(on_phase, pose_i, "scone_step")
+    _, occ_loss, cov_loss = rt.scone_supervise_step(
+        opts["scone"], scene, R0, T0, depth, mask, err_mask, batch["R"],
+        batch["T"], fld, gen, box_diag=box_diag,
+        surface_distance=surface_distance,
+        vs_distance=3.0 * scene.proxy_distance,
+        n_cells_active=n_cells_active,
+        carving_tolerance=params.get("carving_tolerance", 0.0),
+        score_threshold=params.get("score_threshold", 1.0),
+        train=online_learning and not freeze_scone)
+    return {"depth": depth_loss_v, "occ": occ_loss, "cov": cov_loss}
+
+
+def memory_depth_loop(rt: MacaronsRuntime, memory: Memory, opts: Dict,
+                      gen: torch.Generator, rs: np.random.Generator):
+    """Depth replay: n_memory_samples frames drawn independently over every
+    scene memory and every past trajectory, each with its alpha context,
+    trained as one batch in one step. Returns the loss, or None when
+    nothing is replayable."""
+    n_samples = rt.params.get("n_memory_samples", 4)
+    n_context = rt.dcfg.n_alpha + 1 + (
+        1 if rt.dcfg.use_future_frame_for_supervision else 0)
+    got = memory.sample_depth_replay(
+        rs, n_samples, n_context, exclude_traj=memory.current_trajectory())
+    if got is None:
+        return None
+    bs, als = [], []
+    for path, traj, last in got:
+        b, a = create_batch_for_depth_model(
+            rt.dcfg, memory.load_frame_sequence(path, last, n_context, traj),
+            "supervision", device=rt.device)
+        bs.append(b)
+        als.append(a)
+    batch = {k: torch.cat([b[k] for b in bs]) for k in bs[0]}
+    alpha = {k: torch.cat([a[k] for a in als]) for k in als[0]}
+    return rt.depth_train_step(opts.get("depth"), batch, alpha, gen=gen)[0]
+
+
+def memory_scone_loop(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
+                      memory_path: str, opts: Dict, gen: torch.Generator,
+                      rs: np.random.Generator, n_loops: int = 1,
+                      n_replay_frames: int = 4):
+    """SCONE replay on a saved trajectory of this scene: its occupancy
+    snapshot gives the pseudo-GT and the carving counters to continue from;
+    a random run of saved depths rebuilds a partial world; then ``n_loops``
+    windows of n_poses_in_memory_scene_loops depths each take one SCONE
+    step, the world growing between windows and the prediction camera
+    moving to each window's first view. Returns the last loss, or None."""
+    params = rt.params
+    n_sup = params.get("n_poses_in_memory_scene_loops", n_replay_frames)
+    got = memory.get_random_scene_for_scone(
+        rs, memory_path, n_sup, n_loops=n_loops,
+        max_build=params.get("n_max_memory_depths_for_partial_pc", 30),
+        exclude_traj=memory.current_trajectory(),
+        n_proxy_points=scene.proxy.points.shape[0])
+    if got is None:
+        return None
+    traj, build_nbs, info = got
+    n_d = info["n_depths"]
+    dev = rt.device
+    pseudo_gt = torch.as_tensor(info["pseudo_gt"], device=dev)
+
+    n_poses = params.get("n_poses_in_trajectory", 100)
+    curr_dists = R.curriculum_sampling_distances(
+        max(n_poses, 2), scene.proxy_distance, scene.cfg.cell_size)
+    curr_cells = R.curriculum_sampling_cell_number(
+        max(n_poses, 2), rt.occ_curriculum_min_cells,
+        rt.occ_curriculum_max_cells)
+    max_ci = params.get("memory_max_curriculum_index", -1)
+    hi_ci = len(curr_dists) if max_ci == -1 else min(max_ci, len(curr_dists))
+
+    replay = copy.copy(scene)
+    replay.surface_scene = G.empty_grid(scene.cfg, dev)
+    replay.proxy = scene.proxy._replace(
+        supervision_occ=torch.ones_like(scene.proxy.supervision_occ),
+        view_states=torch.zeros_like(scene.proxy.view_states),
+        out_of_field=torch.ones_like(scene.proxy.out_of_field),
+        n_inside_fov=torch.as_tensor(info["n_inside_fov"], device=dev),
+        n_behind_depth=torch.as_tensor(info["n_behind_depth"], device=dev))
+
+    cache: Dict[int, Dict] = {}
+
+    def load_stack(nbs):
+        for nb in nbs:
+            if nb not in cache:
+                cache[nb] = memory.load_depth(memory_path, nb, traj)
+        return tuple(torch.as_tensor(np.concatenate([cache[nb][k]
+                                                     for nb in nbs]),
+                                     device=dev)
+                     for k in ("depth", "mask", "error_mask", "R", "T"))
+
+    carving = dict(carving_tolerance=params.get("carving_tolerance", 0.0),
+                   score_threshold=params.get("score_threshold", 1.0))
+    mapping_update(rt, replay, *load_stack(build_nbs), gen, **carving)
+
+    used = set(build_nbs)
+    last_nb = build_nbs[-1]
+    box_diag = float(np.linalg.norm(np.asarray(scene.cfg.x_max)
+                                    - np.asarray(scene.cfg.x_min)))
+    loss = None
+    for i_loop in range(n_loops):
+        if params.get("random_poses_in_memory_scene_loops", False):
+            pool = [i for i in range(n_d) if i not in used]
+            if len(pool) < n_sup - 1:
+                break
+            picks = rs.choice(len(pool), size=n_sup - 1, replace=False)
+            window = [last_nb] + [pool[int(i)] for i in picks]
+        else:
+            cur = build_nbs[-1] + i_loop * (n_sup - 1)
+            window = [last_nb] + [min(cur + j, n_d - 1)
+                                  for j in range(1, n_sup)]
+        used.update(window)
+        depth, mask, err, R_b, T_b = load_stack(window)
+        ci = int(rs.integers(0, max(hi_ci, 1)))
+
+        pre_proxy, pre_surface = replay.proxy, replay.surface_scene
+        pre_oof = pre_proxy.out_of_field[:, 0] < 1.0
+        prediction_camera = FoVCamera.create(R_b[0:1], T_b[0:1],
+                                             zfar=rt.dcfg.zfar)
+        proba, pmask, harmonics = rt.occupancy_field(
+            pre_proxy, pre_surface, prediction_camera)
+        fld = R.assemble_scene_field(pre_proxy, proba, pmask, harmonics)
+        close = close_mask(rt, pre_proxy.points, depth, mask, R_b, T_b,
+                           float(curr_dists[ci])) & pre_oof
+        fill = torch.zeros((n_sup,), device=dev)
+        fill[0] = 1.0
+        pcs, valids = mapping_update(rt, replay, depth, mask, err, R_b, T_b,
+                                     gen, fill_feats=fill, **carving)
+        sup_gains, replay.surface_scene = G.window_coverage_gains(
+            scene.cfg, replay.surface_scene, pcs, valids,
+            surface_epsilon=params.get("surface_epsilon"))
+        sup_occ = (replay.proxy.supervision_occ
+                   if params.get("memory_supervise_with_online_field", False)
+                   else pseudo_gt)
+        visited = FoVCamera.create(R_b, T_b, zfar=rt.dcfg.zfar)
+        loss = rt.scone_train_step(
+            opts["scone"], pre_proxy, pre_surface, prediction_camera, close,
+            visited, visited.camera_center(), sup_gains, fld,
+            n_supervision=params.get(
+                "n_proxy_point_for_occupancy_supervision", 6000),
+            box_diag=box_diag, cell_resolution=scene.cfg.resolution,
+            n_cells_active=int(curr_cells[ci]), sup_occ=sup_occ, gen=gen)[0]
+        last_nb = window[-1]
+    return loss
+
+
+def recompute_mapping(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
+                      memory_path: str, gen: torch.Generator):
+    """Remap: re-predict the depth of every frame of the trajectory with the
+    current network and rebuild the surface grid and the proxy field from
+    them; every save_depth_every_n_frame-th depth is saved (numbered in
+    order) for SCONE replay."""
+    params = rt.params
+    dev = rt.device
+    scene.surface_scene = G.empty_grid(scene.cfg, dev)
+    scene.proxy = P.reset_supervision_occ(scene.proxy)._replace(
+        view_states=torch.zeros_like(scene.proxy.view_states),
+        out_of_field=torch.ones_like(scene.proxy.out_of_field))
+    n_alpha = rt.dcfg.n_alpha
+    every = params.get("save_depth_every_n_frame", 1)
+    n_saved = 0
+    for last in range(n_alpha, memory.n_frames(memory_path)):
+        batch, alpha = create_batch_for_depth_model(
+            rt.dcfg, memory.load_frame_sequence(memory_path, last,
+                                                1 + n_alpha),
+            "inference", device=dev)
+        depth, mask, err_mask = rt.apply_depth_inference(batch, alpha)
+        mapping_update(rt, scene, depth, mask, err_mask, batch["R"],
+                       batch["T"], gen,
+                       carving_tolerance=params.get("carving_tolerance", 0.0),
+                       score_threshold=params.get("score_threshold", 1.0))
+        if (last - n_alpha) % every == 0:
+            memory.save_depth(memory_path, n_saved, depth, mask, err_mask,
+                              batch["R"], batch["T"])
+            n_saved += 1
+
+
+# ---------------------------------------------------------------------------
+# Trajectory and epoch loops
+# ---------------------------------------------------------------------------
+
+
+def run_trajectory(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
+                   memory_path: str, opts: Dict, gen: torch.Generator,
+                   rs: np.random.Generator, n_poses: int,
+                   freeze_scone: bool = False, warmup_phase: bool = False,
+                   online_learning: bool = True, n_memory_loops: int = 0,
+                   remap_at: Optional[int] = None, verbose: bool = False,
+                   on_phase: Optional[Callable] = None):
+    """One trajectory of n_poses NBV steps, with depth and SCONE replay
+    after each pose and a remap at pose ``remap_at``; at its end the
+    surface and occupancy snapshots and the poses go to the memory.
+    ``on_phase(pose_i, name)`` is called at the pose's phase boundaries
+    ("decision", "capture", "depth_step", "scone_step", "depth_replay",
+    "scone_replay", "remap", "done"). Returns the per-pose losses
+    {"depth", "occ", "cov"} as floats; ``scene.coverages`` gets each
+    pose's coverage."""
+    params = rt.params
+    cam = scene.camera
+    start_trajectory(rt, scene, memory, memory_path, rs)
+    curr_dists = R.curriculum_sampling_distances(
+        max(n_poses, 2), scene.proxy_distance, scene.cfg.cell_size)
+    curr_cells = R.curriculum_sampling_cell_number(
+        max(n_poses, 2), rt.occ_curriculum_min_cells,
+        rt.occ_curriculum_max_cells)
+    every = params.get("recompute_surface_every_n_loop", 20)
+
+    losses = {"depth": [], "occ": [], "cov": []}
+    for pose_i in range(n_poses):
+        if every > 0 and pose_i > 0 and pose_i % every == 0:
+            pts, valid = G.all_points(scene.surface_scene)
+            scene.surface_scene = G.fill_cells_progressive(
+                scene.cfg, G.empty_grid(scene.cfg, rt.device), gen, pts,
+                valid)
+        step = nbv_loop_step(
+            rt, scene, memory, memory_path, opts, gen,
+            freeze_scone=freeze_scone, warmup_phase=warmup_phase,
+            online_learning=online_learning,
+            surface_distance=float(curr_dists[pose_i]),
+            n_cells_active=int(curr_cells[pose_i]), on_phase=on_phase,
+            pose_i=pose_i)
+        for k in losses:
+            losses[k].append(step[k])
+
+        _phase(on_phase, pose_i, "depth_replay")
+        for _ in range(n_memory_loops):
+            memory_depth_loop(rt, memory, opts, gen, rs)
+        _phase(on_phase, pose_i, "scone_replay")
+        if online_learning and not freeze_scone \
+                and params.get("n_memory_scene_loops", 0) > 0:
+            memory_scone_loop(rt, scene, memory, memory_path, opts, gen, rs,
+                              n_loops=params.get("n_memory_scene_loops", 0),
+                              n_replay_frames=rt.n_interpolation_steps)
+        _phase(on_phase, pose_i, "remap")
+        if remap_at is not None and pose_i == remap_at:
+            recompute_mapping(rt, scene, memory, memory_path, gen)
+        cov, _ = G.scene_coverage(scene.cfg, scene.gt_scene,
+                                  scene.surface_scene)
+        scene.coverages.append(float(cov))
+        _phase(on_phase, pose_i, "done")
+        if verbose:
+            shown = {k: float(v[-1]) for k, v in losses.items()}
+            print(f"  pose {pose_i}: losses {shown} coverage "
+                  f"{scene.coverages[-1]:.4f}")
+
+    memory.save_surface_scene(memory_path, scene.surface_scene)
+    memory.save_occupancy_field(memory_path, scene.proxy)
+    memory.save_poses(memory_path, memory.current_epoch,
+                      np.concatenate(cam.X_cam_history, 0),
+                      np.concatenate(cam.V_cam_history, 0),
+                      np.stack(cam.cam_idx_history, 0))
+    return {k: [float(v) for v in vs] for k, vs in losses.items()}
+
+
+def seeded_generator(device, *seeds) -> torch.Generator:
+    """A generator on ``device`` seeded from a tuple of integers."""
+    seed = int(np.random.SeedSequence([int(s) for s in seeds])
+               .generate_state(1, np.uint64)[0] >> 1)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def run_training(params: Params, data_path: Optional[str] = None,
+                 weights_dir: str = "weights/macarons",
+                 memory_root: Optional[str] = None,
+                 max_scenes_per_epoch: Optional[int] = None,
+                 device="cuda", verbose: bool = True,
+                 on_phase: Optional[Callable] = None):
+    """The online trainer on ``device`` ("cuda" unless the caller
+    asks for the CPU). Epoch e draws from numpy's default_rng([random_seed,
+    e]) and a torch generator seeded from (torch_seed, e), so a run resumed
+    at epoch e draws what one process reaching e draws. ``on_phase``, if
+    given, is handed to every training trajectory (see run_trajectory) as
+    ``on_phase(epoch, pose_i, name)``. Returns (model, per-epoch mean
+    losses)."""
+    dev = resolve_device(device)
+    data_path = data_path or params.data_path
+    if (params.get("n_parallel_scenes", 1) or 1) > 1:
+        raise NotImplementedError("scene-parallel training is not ported yet")
+    seed = params.get("random_seed", 42)
+    torch_seed = params.get("torch_seed", 5)
+    dataset = SceneDataset(data_path)
+    model = create_macarons_model(params, dev)
+    init_macarons_weights(model, seeded_generator(dev, torch_seed))
+    opts = create_optimizers(params, model)
+
+    name = params.get("macarons_model_name", "macarons")
+    start_epoch = 0
+    best_loss = float("inf")
+    depth_losses_per_epoch: List[float] = []
+    all_train_losses: List[Dict] = []
+    n_freeze = params.get("n_freeze_epochs", 0)
+    warmup_epochs = params.get("warmup_phase",
+                               params.get("warmup_phase_epochs", 0))
+
+    def resolve(p: str) -> str:
+        if p.endswith(".pth") or p.endswith(".msgpack") or p.endswith(".pt"):
+            p = p.rsplit(".", 1)[0]
+        if not os.path.isabs(p) and not checkpoint_exists(p):
+            q = os.path.join(weights_dir, p)
+            if checkpoint_exists(q):
+                return q
+        return p
+
+    pretrained_path = params.get("pretrained_model_path")
+    pretrained_path = resolve(pretrained_path) if pretrained_path else None
+
+    def load_pretrained():
+        if (params.get("pretrained", False) and pretrained_path
+                and checkpoint_exists(pretrained_path)):
+            load_macarons(pretrained_path, model)
+            if verbose:
+                print(f"loaded pretrained weights from {pretrained_path}")
+
+    rt = MacaronsRuntime(params, model, device=dev)
+    resume_path = os.path.join(weights_dir, f"unvalidated_{name}")
+    if params.get("start_from_scratch", True):
+        load_pretrained()
+    elif checkpoint_exists(resume_path):
+        meta = load_macarons(resume_path, model, opts)
+        start_epoch = int(meta.get("epoch", 0))
+        best_loss = float(meta.get("best_loss", best_loss))
+        all_train_losses = list(meta.get("train_losses", []))
+        depth_losses_per_epoch = [float(x)
+                                  for x in meta.get("depth_losses", [])]
+        rt.depth_opt_steps = int(meta.get("depth_opt_steps", 0))
+        rt.scone_opt_steps = int(meta.get("scone_opt_steps", 0))
+        if verbose:
+            print(f"resumed from {resume_path} at epoch {start_epoch}")
+    else:
+        raise FileNotFoundError(
+            f"start_from_scratch is false but no checkpoint at {resume_path}")
+    begin_frozen = n_freeze > 0 and start_epoch < n_freeze
+    best_val_coverage = -1.0
+
+    mem_root = memory_root or data_path
+    mem_dir = params.get("memory_dir_name", "macarons_memory")
+    all_paths = [os.path.join(mem_root, dataset[i]["scene_name"], mem_dir)
+                 for i in range(len(dataset))]
+    n_poses = params.get("n_poses_in_trajectory", 100)
+    common = dict(online_learning=params.get("online_learning", True),
+                  n_memory_loops=params.get("n_memory_loops", 0),
+                  remap_at=params.get("remap_every_n_poses",
+                                      params.get("remap_at_pose")),
+                  verbose=verbose)
+
+    for epoch in range(start_epoch, params.get("epochs", 1)):
+        t0 = time.time()
+        rs = np.random.default_rng([seed, epoch])
+        gen = seeded_generator(dev, torch_seed, epoch)
+        epoch_losses = {"depth": [], "occ": [], "cov": []}
+        freeze_scone = epoch < n_freeze
+        warmup = epoch < warmup_epochs
+
+        if begin_frozen and not freeze_scone:
+            # Unfreeze: pretrained weights again, fresh optimizers.
+            if verbose:
+                print(f"epoch {epoch}: unfreezing all weights")
+            load_pretrained()
+            opts = create_optimizers(params, model)
+            rt.depth_opt_steps = rt.scone_opt_steps = 0
+            best_loss = float("inf")
+            begin_frozen = False
+
+        rt.update_learning_rates(epoch)
+        scene_indices = rs.permutation(len(dataset))
+        if max_scenes_per_epoch:
+            scene_indices = scene_indices[:max_scenes_per_epoch]
+        memory = Memory(all_paths, current_epoch=epoch,
+                        n_trajectories=params.get("n_memory_trajectories", 1))
+        for si in scene_indices:
+            item = dataset[int(si)]
+            sym_p = params.get("symmetry_probability", 0.5)
+            mirrored = ([a for a in params.get("axis_to_mirror", [0, 1])
+                         if rs.random() < sym_p]
+                        if params.get("random_mirror_scenes", True) else None)
+            scene = setup_scene(params, item, seeded_generator(dev, torch_seed,
+                                                         epoch, si),
+                                dev, mirrored_axes=mirrored)
+            rt.bind_scene(scene.cfg, scene.cell_table)
+            mp = os.path.join(mem_root, item["scene_name"], mem_dir)
+            hook = (None if on_phase is None else
+                    lambda pose_i, phase, e=epoch: on_phase(e, pose_i, phase))
+            traj = run_trajectory(
+                rt, scene, memory, mp, opts, gen, rs, n_poses=n_poses,
+                freeze_scone=freeze_scone, warmup_phase=warmup,
+                on_phase=hook, **common)
+            for k in epoch_losses:
+                epoch_losses[k] += traj[k]
+            if verbose:
+                print(f"epoch {epoch} scene {item['scene_name']}: final "
+                      f"coverage {scene.coverages[-1]:.4f}")
+
+        mean_depth = (float(np.mean(epoch_losses["depth"]))
+                      if epoch_losses["depth"] else 0.0)
+        all_train_losses.append({k: float(np.mean(v)) if v else 0.0
+                                 for k, v in epoch_losses.items()})
+        depth_losses_per_epoch.append(mean_depth)
+
+        val_coverage = None
+        val_scenes = params.get("val_scenes")
+        if (val_scenes and params.get("validate_every_n_epochs", 0) > 0
+                and (epoch + 1) % params["validate_every_n_epochs"] == 0):
+            covs = []
+            for vname in val_scenes:
+                if vname not in dataset.scene_names:
+                    continue
+                item = dataset[dataset.scene_names.index(vname)]
+                vscene = setup_scene(params, item, gen, dev)
+                rt.bind_scene(vscene.cfg, vscene.cell_table)
+                vpath = os.path.join(mem_root, vname, "macarons_memory_val")
+                run_trajectory(rt, vscene,
+                               Memory([vpath], current_epoch=epoch), vpath,
+                               opts, gen, rs,
+                               n_poses=params.get("n_val_poses", 10),
+                               online_learning=False)
+                covs.append(vscene.coverages[-1])
+            if covs:
+                val_coverage = float(np.mean(covs))
+                if verbose:
+                    print(f"epoch {epoch}: val coverage {val_coverage:.4f}")
+
+        meta = {"epoch": epoch + 1, "depth_losses": depth_losses_per_epoch,
+                "train_losses": all_train_losses, "best_loss": best_loss,
+                "val_coverage": val_coverage,
+                "depth_opt_steps": rt.depth_opt_steps,
+                "scone_opt_steps": rt.scone_opt_steps}
+        os.makedirs(weights_dir, exist_ok=True)
+        with open(os.path.join(weights_dir, f"losses_data_{name}.json"),
+                  "w") as f:
+            json.dump({"train_losses": all_train_losses,
+                       "depth_losses": depth_losses_per_epoch}, f, indent=2)
+        # The rolling resume point keeps the optimizers; the other flavours
+        # are weights only.
+        save_macarons(os.path.join(weights_dir, f"unvalidated_{name}"),
+                      model, meta, opt_states=opts)
+        if mean_depth < best_loss:
+            best_loss = meta["best_loss"] = mean_depth
+            save_macarons(os.path.join(weights_dir, f"best_unval_{name}"),
+                          model, meta)
+        if val_coverage is not None and val_coverage > best_val_coverage:
+            best_val_coverage = val_coverage
+            save_macarons(os.path.join(weights_dir,
+                                       f"coverage_validated_{name}"),
+                          model, meta)
+        if (epoch + 1) % params.get("save_model_every_n_epoch", 1) == 0 \
+                or epoch + 1 == params.get("epochs", 1):
+            save_macarons(os.path.join(weights_dir, f"epoch_{epoch}_{name}"),
+                          model, meta)
+
+        # Loss peak: the depth network goes back to the newest periodic
+        # checkpoint before this epoch; SCONE keeps its weights.
+        thr = params.get("loss_peak_threshold", 0.015)
+        if (len(depth_losses_per_epoch) >= 2 and model.depth is not None
+                and depth_losses_per_epoch[-1]
+                > depth_losses_per_epoch[-2] + thr):
+            for prev_epoch in range(epoch - 1, -1, -1):
+                prev = os.path.join(weights_dir, f"epoch_{prev_epoch}_{name}")
+                if checkpoint_exists(prev):
+                    load_macarons_depth(prev, model)
+                    if verbose:
+                        print(f"loss peak at epoch {epoch}: depth network "
+                              f"rolled back to epoch {prev_epoch}")
+                    break
+        if verbose:
+            print(f"epoch {epoch} done in {time.time() - t0:.1f}s: "
+                  f"{all_train_losses[-1]}")
+    return model, all_train_losses
+
+
+def load_macarons_depth(path: str, model: MacaronsModel):
+    """The depth network of checkpoint ``path``, SCONE untouched."""
+    keep = (copy.deepcopy(model.occ.state_dict()),
+            copy.deepcopy(model.vis.state_dict()))
+    load_macarons(path, model)
+    model.occ.load_state_dict(keep[0])
+    model.vis.load_state_dict(keep[1])

@@ -6,16 +6,51 @@ so it runs on a machine that has only the port's dependencies:
     python -m pytest --noconftest -m gpu tests/test_torch_port_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
-from chip_smoke import edge_case_mesh, item_boundary_args, raster_args
-from macarons_tpu_torch.models.macarons import init_depth_weights
+from chip_smoke import (
+    BACKWARD_REL,
+    FP32_SLACK,
+    STEP_REL,
+    edge_case_mesh,
+    hold_backward,
+    hold_depth_step,
+    hold_scone_step,
+    item_boundary_args,
+    raster_args,
+    sh_inputs,
+)
+from macarons_tpu_torch.config import Params, load_params
+from macarons_tpu_torch.data.scenes import SceneDataset
+from macarons_tpu_torch.data.synthetic_suite import generate_suite
+from macarons_tpu_torch.models.macarons import (
+    MacaronsModel,
+    create_macarons_model,
+    init_depth_weights,
+    init_macarons_weights,
+)
 from macarons_tpu_torch.models.many_depth import ManyDepth
-from macarons_tpu_torch.models.scone import compute_visibilities
+from macarons_tpu_torch.models.scone import (
+    SconeOcc,
+    SconeVis,
+    compute_visibilities,
+)
 from macarons_tpu_torch.ops import rasterizer as rast
 from macarons_tpu_torch.ops.cuda import sh_visibility as shv
 from macarons_tpu_torch.ops.cuda import tile_raster as tr
+from macarons_tpu_torch.ops.geometry import FoVCamera, look_at_view_transform
+from macarons_tpu_torch.scene.camera import get_camera_RT
+from macarons_tpu_torch.scene.depth_runtime import create_batch_for_depth_model
+from macarons_tpu_torch.scene.memory import Memory
+from macarons_tpu_torch.scene.runtime import assemble_scene_field
+from macarons_tpu_torch.testers.scene import compute_trajectory
+from macarons_tpu_torch.trainers.train_macarons import (
+    MacaronsRuntime,
+    depth_cfg_from_params,
+    setup_scene,
+)
 from macarons_tpu_torch.utils.device import resolve_device
 
 pytestmark = pytest.mark.gpu
@@ -258,3 +293,121 @@ def test_many_depth_never_syncs(many_depth):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+def backward_inputs(gen, B, C, L, poles=False):
+    pts, harm, X_cam = sh_inputs(gen, B, C, L)
+    if poles:  # on the +-y axis of camera 0, and 1e6 pads
+        pts[:, : L // 3, 0] = X_cam[:, :1, 0]
+        pts[:, : L // 3, 2] = X_cam[:, :1, 2]
+        pts[:, L // 3: L // 2, :3] = 1e6
+    g = torch.randn(B, C, L, device="cuda", generator=gen)
+    return pts, harm, X_cam, g
+
+
+@pytest.mark.parametrize("sig", [True, False])
+@pytest.mark.parametrize("B,C,L,poles", [(4, 1, 2048, False),
+                                         (1, 4, 2048, False),
+                                         (2, 3, 300, True)])
+def test_sh_visibility_backward_kernel(gen, B, C, L, poles, sig):
+    """B3's backward kernel, reached through autograd, against its plain
+    version: within 1e-5 of the largest gradient."""
+    pts, harm, X_cam, g = backward_inputs(gen, B, C, L, poles)
+    assert hold_backward(pts, harm, X_cam, sig, g) <= BACKWARD_REL
+
+
+def test_compute_visibilities_carries_grad_fn(gen):
+    pts, harm, X_cam, _ = backward_inputs(gen, 4, 1, 256)
+    out = compute_visibilities(pts, harm.requires_grad_(), X_cam)
+    assert out.requires_grad and out.grad_fn is not None
+
+
+def test_sh_visibility_refuses_grad_in_points(gen):
+    pts, harm, X_cam, _ = backward_inputs(gen, 1, 2, 64)
+    with pytest.raises(ValueError, match="coefficients"):
+        shv.sh_visibility(pts.requires_grad_(), harm, X_cam)
+    with pytest.raises(ValueError, match="coefficients"):
+        shv.sh_visibility(pts.detach(), harm, X_cam.requires_grad_())
+
+
+def depth_frames(n, H=256, W=456, zfar=750.0):
+    """A frame sequence on a short camera arc, random images and depths, on
+    the CPU (as Memory.load_frame_sequence gives it)."""
+    g = torch.Generator().manual_seed(n)
+    t = torch.linspace(0.0, 0.3, n)
+    eye = torch.stack((3 * torch.sin(t), 0.2 + 0.1 * t, 3 * torch.cos(t)), -1)
+    R, T = look_at_view_transform(eye, torch.zeros(n, 3))
+    return {"images": torch.rand(n, H, W, 3, generator=g),
+            "zbuf": 1.0 + 4.0 * torch.rand(n, H, W, 1, generator=g),
+            "mask": torch.rand(n, H, W, 1, generator=g) > 0.1,
+            "R": R, "T": T, "zfar": torch.full((n,), zfar)}
+
+
+def test_depth_step_on_card_matches_cpu(gen):
+    """One depth optimizer step at the default training config's widths
+    (ManyDepth at 256x456, 96 planes, B 1, augmentation with fixed draws)
+    on the card and on the CPU from one state (chip_smoke.hold_depth_step:
+    the loss within rtol 1e-4, BatchNorm's running statistics, and the
+    card's gradient no further from the CPU's float64 one than the CPU's
+    float32 gradient is, within chip_smoke.FP32_SLACK)."""
+    params = load_params(
+        "configs/macarons/macarons_default_training_config.json")
+    model = create_macarons_model(params, "cpu")
+    init_macarons_weights(model, torch.Generator().manual_seed(1))
+    cfg = depth_cfg_from_params(params)
+    batch, alpha = create_batch_for_depth_model(
+        cfg, depth_frames(cfg.n_alpha + 2), "supervision")
+    assert batch["images"].shape[0] == 1
+    errs = hold_depth_step(params, model, batch, alpha)
+    assert errs["depth_grad_card"] <= max(STEP_REL,
+                                          FP32_SLACK * errs["depth_grad_cpu"])
+
+
+def test_scone_step_on_card_matches_cpu(gen, tmp_path):
+    """One SCONE optimizer step on a small scene state (synth_00 after two
+    random poses with perfect depth, narrow networks) on the card and on
+    the CPU from one state, the draws shared (chip_smoke.hold_scone_step:
+    both losses and the gradients of SconeOcc and SconeVis)."""
+    from torch_port_helpers import TINY
+
+    root = generate_suite(str(tmp_path / "scenes"), n_scenes=1)
+    params = Params(dict(TINY, data_path=root, occ_curriculum_max_cells=8,
+                         n_proxy_point_for_occupancy_supervision=200))
+    dev = resolve_device("cuda")
+    item = SceneDataset(root)[0]
+    scene = setup_scene(params, item, gen, dev)
+    model = init_macarons_weights(
+        MacaronsModel(SconeOcc(seq_len=256, k_for_knn=8).to(dev),
+                      SconeVis().to(dev), None), gen)
+    rt = MacaronsRuntime(params, model, scene.cfg, scene.cell_table, dev)
+    mem = str(tmp_path / "memory")
+    compute_trajectory(rt, scene, Memory([mem]), mem, gen,
+                       np.random.default_rng(42), n_poses=2,
+                       surface_epsilon=0.15,
+                       start_idx=np.asarray(
+                           item["settings"].start_positions[0]),
+                       policy="random")
+    proxy, cam = scene.proxy, scene.camera
+    in_field = proxy.out_of_field[:, 0] < 1.0
+    nbrs = cam.get_valid_neighbors(cam.get_neighboring_poses(),
+                                   scene.verts_dev)[:4]
+    poses = torch.as_tensor(cam.pose_space.pose_from_idx(nbrs), device=dev)
+    visited = FoVCamera.create(*get_camera_RT(poses[:, :3], poses[:, 3:]),
+                               zfar=params.zfar)
+    N = proxy.points.shape[0]
+    harm = 0.3 * torch.randn(N, 64, device=dev, generator=gen)
+    args = (None, proxy, scene.surface_scene, cam.fov_camera,
+            in_field & (torch.rand(N, device=dev, generator=gen) < 0.7),
+            visited, poses[:, :3],
+            1.0 + 9.0 * torch.rand(len(nbrs), device=dev, generator=gen),
+            assemble_scene_field(proxy, proxy.supervision_occ, in_field, harm))
+    kw = dict(n_supervision=200,
+              box_diag=float(np.linalg.norm(np.asarray(scene.cfg.x_max)
+                                            - np.asarray(scene.cfg.x_min))),
+              cell_resolution=scene.cfg.resolution,
+              sup_occ=(torch.rand(N, 1, device=dev, generator=gen)
+                       < 0.5).float())
+    errs = hold_scone_step(params, model, rt, args, kw, gen)
+    for net in ("occ", "vis"):
+        assert errs[f"{net}_grad_card"] <= max(
+            STEP_REL, FP32_SLACK * errs[f"{net}_grad_cpu"])
