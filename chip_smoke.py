@@ -7,7 +7,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      source, all started together);
   2. hold each kernel against its plain PyTorch twin on the card, at edge
      cases; B3's backward kernel (the SCONE step's gradient of the SH
-     coefficients) against its plain version at the SCONE step's shapes;
+     coefficients) against its plain version at the SCONE step's shapes, at
+     odd sizes, 5 cameras, the poles and the pads, and its basis against
+     the forward kernel's, bit for bit;
   3. drive the nbv scene-exploration trajectory at the default test config's
      widths on the generated synthetic scene synth_00 (232 faces: scan
      capture), with random SCONE weights from a seed, and check its outputs;
@@ -15,9 +17,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      (the plain twins) with the same Monte-Carlo sample: the gains agree;
   5. scene-scale capture: the same trajectory on synth_00 subdivided 4 times
      (59,392 faces: tiled capture, one fused launch of the tile raster
-     kernel per capture for TPU kernels B1 and B2), then one move's frames
-     rasterized on the card and on the CPU (the plain versions): the same
-     face ids; the tiled path's time, first call and warm;
+     kernel per capture for TPU kernels B1 and B2), run twice from one
+     generator state: the same poses, coverages and gains, bit for bit, and
+     the sampling CDF's scan repeats; then one move's frames rasterized on
+     the card and on the CPU (the plain versions): the same face ids; the
+     tiled path's time, first call and warm;
   6. depth: the default test config as users run it, on the 59,392-face
      scene: ManyDepth depth at 256x456 with 96 planes and the predicted
      SconeOcc field, random weights for the three networks from a seed, 5
@@ -30,22 +34,31 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      59,392-face scene, epoch 0 (4 poses, a remap at pose 2), then a resumed
      run through epoch 1 with depth and SCONE replay; per-pose phase times,
      the checks of phase_train; one depth step (B 1) and one SCONE step on
-     the card against the CPU; the depth step at B 4 and the SCONE step
-     timed alone;
+     the card against the CPU, the SCONE step's inputs saved under
+     chiprun_out/ and what sets the card's SconeOcc error printed (its kNN
+     and max-pool picks against float64's); the depth step at B 4 and the
+     SCONE step timed alone;
   8. time each kernel at the shapes of the scene-scale path (B3's backward
-     at the SCONE step's), and hold it against its twin there; time the
-     two-pass composition (B1, B2, merge) against the fused launch, in
-     turns;
+     at the SCONE step's two, beside the launch floor), and hold it against
+     its twin there; time the two-pass composition (B1, B2, merge) against
+     the fused launch, in turns;
   9. print the kernel table (JSON), the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
-Each trajectory (the train phase: both runs together) runs with every
-kernel's launch count set to 0 just before it and read just after. Needs CUDA; never falls back to the CPU.
+Each trajectory prints its pose sequence and coverages. A saved SCONE step
+replays on the card and the CPU with
+    python3 -c "import chip_smoke as cs; cs.replay_scone_step(
+        cs.load_scone_step('chiprun_out/scone_step.pt.gz'))"
+Each trajectory
+(the train phase: both runs together) runs with every kernel's launch count
+set to 0 just before it and read just after. Needs CUDA; never falls back to
+the CPU.
 """
 
 import copy
 import dataclasses
 import functools
 import gc
+import gzip
 import json
 import os
 import subprocess
@@ -65,6 +78,8 @@ from macarons_tpu_torch.config import (
 from macarons_tpu_torch.data.mesh_io import Mesh, load_obj, save_obj
 from macarons_tpu_torch.data.scenes import SceneDataset
 from macarons_tpu_torch.data.synthetic_suite import generate_suite
+from macarons_tpu_torch.models import scone as scone_model
+from macarons_tpu_torch.models.attention import PCTransformer
 from macarons_tpu_torch.models.macarons import (
     MacaronsModel,
     create_macarons_model,
@@ -77,7 +92,9 @@ from macarons_tpu_torch.ops.cuda import sh_visibility as shv
 from macarons_tpu_torch.ops.cuda import tile_raster as tr
 from macarons_tpu_torch.ops.cuda.build import BUILD_DIR
 from macarons_tpu_torch.ops.geometry import FoVCamera, look_at_view_transform
+from macarons_tpu_torch.ops.knn import knn_gather
 from macarons_tpu_torch.ops.projection import disparity_to_depth
+from macarons_tpu_torch.ops.sampling import compute_mesh_face_area, cumsum_rows
 from macarons_tpu_torch.scene.camera import get_camera_RT
 from macarons_tpu_torch.scene.depth_runtime import (
     depth_masks,
@@ -95,6 +112,8 @@ from macarons_tpu_torch.trainers.train_macarons import (
 from macarons_tpu_torch.utils.device import make_generator, resolve_device
 
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+# What the run keeps for later: the held SCONE step's inputs.
+HELD_DIR = os.path.join(REPO_DIR, "chiprun_out")
 SEED = 0
 N_POSES = 5
 SCENE_LEVELS = 4  # 232 * 4**4 = 59,392 faces
@@ -409,15 +428,17 @@ def phase_trajectory(gen, label, levels, needs, fixture=True):
     def span(i, a, b):
         return events[(i, a)].elapsed_time(events[(i, b)])
 
+    print(f"{tag} start: pose {traj['cam_idx'][0]}, coverage "
+          f"{traj['coverage'][0]!r}", flush=True)
     for i in range(N_POSES):
         print(f"{tag} pose {i}: decision "
               f"{span(i, 'decision', 'capture'):.2f} ms (depth + mapping "
               f"{span(i, 'decision', 'field'):.2f}, occupancy field "
               f"{span(i, 'field', 'score'):.2f}, scoring "
               f"{span(i, 'score', 'capture'):.2f}), capture "
-              f"{span(i, 'capture', 'done'):.2f} ms, coverage "
-              f"{traj['coverage'][i + 1]:.4f}, candidates "
-              f"{cand_shapes[i][0]}", flush=True)
+              f"{span(i, 'capture', 'done'):.2f} ms, candidates "
+              f"{cand_shapes[i][0]}, next pose {traj['cam_idx'][i + 1]}, "
+              f"coverage {traj['coverage'][i + 1]!r}", flush=True)
     print(f"{tag} {N_POSES} poses in {wall:.2f} s, peak device memory "
           f"{peak_gib:.2f} GiB, launches {counts}", flush=True)
 
@@ -436,7 +457,7 @@ def phase_trajectory(gen, label, levels, needs, fixture=True):
     return dict(counts=counts, c_pad=cand_shapes[0][0], seq_len=params.seq_len,
                 rt=rt, model=model, call=calls[-1], traj=traj, scene=scene,
                 params=params, depth_log=depth_log, depths=depths,
-                disps=disps, peak_gib=peak_gib)
+                disps=disps, peak_gib=peak_gib, gains=gains_log)
 
 
 def hold_raster(name, kernel, plain, args):
@@ -677,6 +698,44 @@ def phase_scene_render(run):
     if flips > 1e-3:
         fail(f"{flips} of the pixels change face with the CPU's projection")
     return f9, size
+
+
+def phase_determinism(run, state):
+    """The scene-scale trajectory once more in this process, from the
+    generator state ``state`` that ``run`` started from: the same pose
+    sequence, coverages and coverage gains, bit for bit. Then the sampling
+    CDF of the scene's face areas (one row of 59,392 floats) taken 200 times
+    by torch.cumsum and by cumsum_rows, which the port uses: the distinct
+    results of each are printed (torch.cumsum scans a single CUDA row with
+    an order of additions that changes between runs, PERF.md §6), and
+    cumsum_rows must give one."""
+    gen = make_generator(torch.device("cuda"), SEED)
+    gen.set_state(state)
+    again = phase_trajectory(gen, "scene scale again", SCENE_LEVELS,
+                             SCENE_KERNELS)
+    a, b = run["traj"], again["traj"]
+    same = {"poses": a["cam_idx"] == b["cam_idx"],
+            "coverage": a["coverage"] == b["coverage"],
+            "gains": len(run["gains"]) == len(again["gains"]) and all(
+                torch.equal(x, y) for x, y in zip(run["gains"],
+                                                  again["gains"]))}
+    print(f"[determinism] two scene-scale runs bit for bit alike: {same}; "
+          f"pose sequence {a['cam_idx']}; coverage {a['coverage']}",
+          flush=True)
+    if not all(same.values()):
+        fail(f"two scene-scale runs differ: {same}; second run's poses "
+             f"{b['cam_idx']}, coverage {b['coverage']}")
+    scene = run["scene"]
+    areas = compute_mesh_face_area(scene.verts_dev, scene.faces_dev)
+    distinct = {name: len({fn(areas).cpu().numpy().tobytes()
+                           for _ in range(200)})
+                for name, fn in (("torch.cumsum",
+                                  lambda x: torch.cumsum(x, 0)),
+                                 ("cumsum_rows", cumsum_rows))}
+    print(f"[determinism] the CDF of {areas.shape[0]} face areas, 200 times "
+          f"on the card: distinct results {distinct}", flush=True)
+    if distinct["cumsum_rows"] != 1:
+        fail(f"cumsum_rows gave {distinct['cumsum_rows']} results")
 
 
 def value_range(x):
@@ -953,7 +1012,8 @@ def hold_scone_step(params, model, rt, args, kw, gen, n_cells_active=5):
     """One SCONE optimizer step from one state in each of RUNS: ``args``/
     ``kw`` are a recorded scone_train_step call; the cell-ranking noise and
     the Monte-Carlo sample (points drawn among the occupied ones) are drawn
-    once and given to every run. The card's losses within rtol 1e-3 of the
+    once and given to every run. The state is saved (save_scone_step) and
+    run by replay_scone_step. The card's losses within rtol 1e-3 of the
     CPU's (SconeOcc's kNN and both networks' attention reduce in another
     order), its gradients of SconeOcc and SconeVis as close to the float64
     ones as fp32_errors asks, and one launch of the B3 backward kernel.
@@ -973,37 +1033,13 @@ def hold_scone_step(params, model, rt, args, kw, gen, n_cells_active=5):
               sample_idx=pool[torch.randint(
                   len(pool), (n_cams, rt.coverage_gain.seq_len),
                   device="cuda", generator=gen)])
-    def step(dev, dt):
-        m = MacaronsModel(net_copy(model.occ, dev, dt),
-                          net_copy(model.vis, dev, dt), None)
-        r = MacaronsRuntime(params, m, device=dev)
-        r._tables = _to(rt._tables, dev, dt)
-        opts = create_optimizers(params, m)
-        before = shv.sh_visibility_backward.launches
-        losses = r.scone_train_step(opts["scone"], *_to(args, dev, dt),
-                                    **_to(kw, dev, dt))
-        if (dev == "cuda"
-                and shv.sh_visibility_backward.launches != before + 1):
-            fail("the SCONE step on the card did not launch the "
-                 "sh_visibility backward kernel once")
-        return {"losses": [float(v) for v in losses[1:]],
-                "occ": grads_of(m.occ), "vis": grads_of(m.vis)}
-
-    out = {(dev, dt): in_dtype(dt, lambda: step(dev, dt))
-           for dev, dt in RUNS}
-    # What sets the card's gradient error: a second card run tells
-    # rounding that changes from run to run (atomic accumulation) from
-    # arithmetic the card repeats, and the parameter the largest error
-    # sits in says which layer it comes from.
-    again = in_dtype(torch.float32, lambda: step(*RUNS[0]))
-    ref_occ, card_occ = out[RUNS[2]]["occ"], out[RUNS[0]]["occ"]
-    diag = {"occ_card_rerun": grad_error(again["occ"], card_occ),
-            "vis_card_rerun": grad_error(again["vis"], out[RUNS[0]]["vis"]),
-            "occ_worst_param": max(
-                ref_occ, key=lambda k: float((card_occ[k]
-                                              - ref_occ[k]).abs().max()))}
-    print(f"[train] SCONE step, the card's gradient error: {diag}",
-          flush=True)
+    state = {"params": params.to_dict(), "args": _to(args, "cpu"),
+             "kw": _to(kw, "cpu"), "tables": _to(rt._tables, "cpu"),
+             "occ": _to(model.occ.state_dict(), "cpu"),
+             "vis": _to(model.vis.state_dict(), "cpu")}
+    out = replay_scone_step(state)
+    save_scone_step(os.path.join(HELD_DIR, "scone_step.pt.gz"), state,
+                    out[RUNS[0]])
     card, cpu = out[RUNS[0]]["losses"], out[RUNS[1]]["losses"]
     errs = {"occ_loss": cpu[0], "cov_loss": cpu[1],
             "loss_rel": max(abs(a - b) / max(abs(b), 1e-30)
@@ -1013,6 +1049,189 @@ def hold_scone_step(params, model, rt, args, kw, gen, n_cells_active=5):
         fail(f"the SCONE step on the card and on the CPU differ: {errs}")
     errs.update(fp32_errors(out, ["occ", "vis"]))
     return errs
+
+
+def replay_scone_step(state):
+    """The SCONE step of ``state`` (hold_scone_step's, or one that
+    load_scone_step read from a file) in each of RUNS: per run its losses,
+    its gradients of SconeOcc and SconeVis, and SconeOcc's kNN and
+    max-pool picks. Then what sets the card's gradient error, printed: a
+    second card run tells rounding that changes from run to run (atomic
+    accumulation) from arithmetic the card repeats; the parameters the
+    largest errors sit in, card and CPU, name their layers; the kNN query
+    rows and the max-pool maxima whose picks differ from the float64
+    run's, on the card and on the CPU, and the card's error when it takes
+    the float64 run's picks, say whether a near-tie that float32 rounds
+    the other way sets it."""
+    params = Params(state["params"])
+    nets = create_macarons_model(Params(dict(state["params"],
+                                             use_perfect_depth=True)), "cpu")
+    nets.occ.load_state_dict(state["occ"])
+    nets.vis.load_state_dict(state["vis"])
+
+    def step(dev, dt, neighbours=None, pools=None):
+        m = MacaronsModel(net_copy(nets.occ, dev, dt),
+                          net_copy(nets.vis, dev, dt), None)
+        r = MacaronsRuntime(params, m, device=dev)
+        r._tables = _to(state["tables"], dev, dt)
+        opts = create_optimizers(params, m)
+        before = shv.sh_visibility_backward.launches
+        with knn_picks(neighbours) as picks, pool_picks(m.occ, pools) as maxima:
+            losses = r.scone_train_step(opts["scone"],
+                                        *_to(state["args"], dev, dt),
+                                        **_to(state["kw"], dev, dt))
+        if (dev == "cuda"
+                and shv.sh_visibility_backward.launches != before + 1):
+            fail("the SCONE step on the card did not launch the "
+                 "sh_visibility backward kernel once")
+        return {"losses": [float(v) for v in losses[1:]],
+                "occ": grads_of(m.occ), "vis": grads_of(m.vis),
+                "picks": picks, "maxima": maxima}
+
+    out = {(dev, dt): in_dtype(dt, lambda: step(dev, dt))
+           for dev, dt in RUNS}
+    card, cpu, ref = (out[r] for r in RUNS)
+    again = in_dtype(torch.float32, lambda: step(*RUNS[0]))
+    moved = in_dtype(torch.float32, lambda: step(*RUNS[0], ref["picks"]))
+    pooled = in_dtype(torch.float32, lambda: step(*RUNS[0], None,
+                                                  ref["maxima"]))
+    scale = max(float(g.abs().max()) for g in ref["occ"].values())
+
+    def worst(run):
+        err = {k: float((run["occ"][k] - g).abs().max()) / scale
+               for k, g in ref["occ"].items()}
+        return [(k, f"{err[k]:.2e}") for k in sorted(err, key=err.get)[-3:]]
+
+    diag = {"occ_card_rerun": grad_error(again["occ"], card["occ"]),
+            "vis_card_rerun": grad_error(again["vis"], card["vis"]),
+            "occ_worst_params_card": worst(card),
+            "occ_worst_params_cpu": worst(cpu),
+            "knn_rows": sum(p.shape[0] for p in ref["picks"]),
+            "knn_rows_differ_card": rows_differ(card["picks"], ref["picks"]),
+            "knn_rows_differ_cpu": rows_differ(cpu["picks"], ref["picks"]),
+            "occ_grad_card_float64_neighbours": grad_error(moved["occ"],
+                                                           ref["occ"]),
+            "maxima": sum(p.numel() for p in ref["maxima"]),
+            "maxima_differ_card": picks_differ(card["maxima"],
+                                               ref["maxima"]),
+            "maxima_differ_cpu": picks_differ(cpu["maxima"], ref["maxima"]),
+            "occ_grad_card_float64_maxima": grad_error(pooled["occ"],
+                                                       ref["occ"])}
+    print(f"[train] SCONE step, the card's gradient error: {diag}",
+          flush=True)
+    return out
+
+
+class knn_picks:
+    """SconeOcc's kNN picks while the block runs: a list of each call's
+    neighbour indices (on the CPU), one (queries, k) array per scale; given
+    ``neighbours`` (such a list from another run), each call takes those
+    instead of its own."""
+
+    def __init__(self, neighbours=None):
+        self.neighbours = None if neighbours is None else iter(neighbours)
+
+    def __enter__(self):
+        self.own, self.picks = scone_model.knn_points_many, []
+
+        def knn(queries, k, big=1e10):
+            out = self.own(queries, k, big)
+            if self.neighbours is not None:
+                out = [(knn_gather(pc, next(self.neighbours).to(
+                    pc.device).reshape(idx.shape)), d, idx)
+                       for (_, pc, _), (_, d, idx) in zip(queries, out)]
+            self.picks += [idx.reshape(-1, k).cpu() for _, _, idx in out]
+            return out
+
+        scone_model.knn_points_many = knn
+        return self.picks
+
+    def __exit__(self, *exc):
+        scone_model.knn_points_many = self.own
+
+
+class pool_picks:
+    """The max-pool picks of the point transformers of ``net`` (SconeOcc)
+    while the block runs: per call, the point each (cloud, feature) maximum
+    comes from, on the CPU; given ``forced`` (such a list from another
+    run), each maximum whose pick differs is moved to the forced point, by
+    raising that point's feature to just above the maximum (a near-tie's
+    gap), so that the gradient takes the forced point."""
+
+    def __init__(self, net, forced=None):
+        self.mods = [m for m in net.modules()
+                     if isinstance(m, PCTransformer)]
+        self.forced = None if forced is None else iter(forced)
+
+    def __enter__(self):
+        self.picks, self.mask = [], None
+        self.hooks = [h for m in self.mods for h in (
+            m.register_forward_pre_hook(self.pre, with_kwargs=True),
+            m.Dense_0.register_forward_hook(self.post))]
+        return self.picks
+
+    def pre(self, module, args, kwargs):
+        self.mask = kwargs.get("pts_mask")
+
+    def post(self, module, args, out):
+        x = out.detach()
+        if self.mask is not None:
+            x = x.masked_fill(~self.mask[..., None], -np.inf)
+        pick = x.argmax(dim=-2, keepdim=True)
+        if self.forced is not None:
+            want = next(self.forced).to(x.device).reshape(pick.shape)
+            top = torch.nextafter(x.amax(dim=-2, keepdim=True),
+                                  torch.tensor(np.inf, dtype=x.dtype,
+                                               device=x.device))
+            lift = torch.where(want != pick,
+                               top - torch.gather(x, -2, want), 0.0)
+            out = out + torch.zeros_like(x).scatter(-2, want, lift)
+            pick = want
+        self.picks.append(pick.cpu())
+        return out
+
+    def __exit__(self, *exc):
+        for h in self.hooks:
+            h.remove()
+
+
+def rows_differ(picks, ref):
+    """Query rows whose neighbours differ from ``ref``'s."""
+    if [p.shape for p in picks] != [p.shape for p in ref]:
+        fail("two runs of one SCONE step made different kNN calls")
+    return sum(int((p != q).any(1).sum()) for p, q in zip(picks, ref))
+
+
+def picks_differ(picks, ref):
+    """Max-pool maxima whose pick differs from ``ref``'s."""
+    if [p.shape for p in picks] != [p.shape for p in ref]:
+        fail("two runs of one SCONE step made different max-pools")
+    return sum(int((p != q).sum()) for p, q in zip(picks, ref))
+
+
+def save_scone_step(path, state, card):
+    """Everything a SCONE step held by hold_scone_step starts from, on the
+    CPU, gzipped: the recorded call's arguments without its optimizer
+    (``args``, ``kw``: the states, the field, the cameras, the cell noise
+    and the Monte-Carlo sample), the cell tables, the config, both
+    networks' weights, and the card's losses and gradients, so that the
+    step can be replayed (``load_scone_step``, ``replay_scone_step``) and
+    held against the card's result on another machine."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    state = dict(state, card={
+        k: v if k == "losses" else {n: g.float() for n, g in v.items()}
+        for k, v in card.items() if k not in ("picks", "maxima")})
+    with gzip.open(path, "wb", compresslevel=6) as f:
+        torch.save(state, f)
+    print(f"[train] the held SCONE step's inputs saved to "
+          f"{os.path.relpath(path, REPO_DIR)} "
+          f"({os.path.getsize(path) / 2**20:.1f} MiB)", flush=True)
+
+
+def load_scone_step(path):
+    """The state save_scone_step wrote, its tensors on the CPU."""
+    with gzip.open(path, "rb") as f:
+        return torch.load(f, weights_only=False)
 
 
 def median_ms(fn, reps=5):
@@ -1299,22 +1518,51 @@ def hold_backward(p, h, x, sig, g):
     return float((grad - ref).abs().max() / ref.abs().max())
 
 
+def hold_basis(p, x):
+    """The backward kernel's basis against the forward kernel's, bit for
+    bit, at points p (B, L, P) seen from one camera x (B, 1, 3): with the
+    output and its gradient at 1 and relu, grad_harmonics[..., k] is Y_k
+    itself; the forward with relu and the coefficients +-e_k gives
+    max(+-Y_k, 0). Returns the number of (point, term) entries that
+    differ."""
+    B, L = p.shape[:2]
+    ones = torch.ones(B, 1, L, device="cuda")
+    basis = shv.sh_visibility_backward(p, x, ones, ones, use_sigmoid=False)
+    fwd = torch.empty_like(basis)
+    with torch.no_grad():
+        for k in range(shv.N_HARMONICS):
+            e = torch.zeros_like(basis)
+            e[..., k] = 1.0
+            fwd[..., k] = (shv.sh_visibility(p, e, x, False)
+                           - shv.sh_visibility(p, -e, x, False))[:, 0]
+    return int((fwd != basis).sum())
+
+
+def pole_and_pad_inputs(gen, B, C, L):
+    """sh_inputs with points on the +-y axis of camera 0 (the sin(theta)
+    clamp) and 1e6 pads (the JAX kernel's padding value)."""
+    pts, harm, X_cam = sh_inputs(gen, B, C, L)
+    pts[:, :L // 3, 0] = X_cam[:, :1, 0]
+    pts[:, :L // 3, 2] = X_cam[:, :1, 2]
+    pts[:, L // 3:L // 2, :3] = 1e6
+    return pts, harm, X_cam
+
+
 def phase_backward_kernel():
     """B3's backward kernel against its plain version at the SCONE step's
     shapes (4 visited cameras, one per candidate batch: (4, 1, 2048); one
-    shared sample: (1, 4, 2048)) and at the poles and the 1e6 pads, both
-    activations; and the wrapper refusing points that require grad. Own
-    generator: the trajectories after it draw as before."""
+    shared sample: (1, 4, 2048)), at 1001 points (a multiple of no block or
+    lane-group size), at 5 cameras, and at the poles and the 1e6 pads, both
+    activations; its basis against the forward kernel's, bit for bit; and
+    the wrapper refusing points that require grad. Own generator: the
+    trajectories after it draw as before."""
     gen = make_generator(torch.device("cuda"), SEED + 4)
     cases = []
-    for B, C, L in ((4, 1, 2048), (1, 4, 2048)):
+    for B, C, L in ((4, 1, 2048), (1, 4, 2048), (3, 1, 1001), (2, 5, 333)):
         for sig in (True, False):
             cases.append((f"({B},{C},{L}) {'sigmoid' if sig else 'relu'}",
                           sh_inputs(gen, B, C, L), sig))
-    pts, harm, X_cam = sh_inputs(gen, 2, 3, 300)
-    pts[:, :100, 0] = X_cam[:, :1, 0]
-    pts[:, :100, 2] = X_cam[:, :1, 2]
-    pts[:, 100:150, :3] = 1e6
+    pts, harm, X_cam = pole_and_pad_inputs(gen, 2, 3, 300)
     for sig in (True, False):
         cases.append((f"poles and pads {'sigmoid' if sig else 'relu'}",
                       (pts, harm, X_cam), sig))
@@ -1329,6 +1577,15 @@ def phase_backward_kernel():
         if not np.isfinite(err) or err > BACKWARD_REL:
             fail(f"sh_visibility_backward {name} differs from its plain "
                  f"version by {err} of max |grad|")
+    p, _, x = pole_and_pad_inputs(gen, 2, 1, 300)
+    differ = hold_basis(p, x)
+    print(f"[kernel] sh_visibility_backward: basis against the forward "
+          f"kernel's at the poles and pads, {differ} of "
+          f"{p.shape[0] * p.shape[1] * shv.N_HARMONICS} terms differ",
+          flush=True)
+    if differ:
+        fail(f"the backward kernel's basis differs from the forward's in "
+             f"{differ} terms")
     try:
         shv.sh_visibility(pts.detach().requires_grad_(), harm, X_cam)
     except ValueError:
@@ -1338,37 +1595,62 @@ def phase_backward_kernel():
     return worst
 
 
-def backward_row(worst, B, C, L):
-    """B3's backward at the SCONE step's per-candidate shape (B, C, L);
-    its launches are the train phase's, filled in by the caller."""
-    gen = make_generator(torch.device("cuda"), SEED + 5)
+def launch_floor_ms():
+    """torch.profiler's device time of a one-element elementwise kernel:
+    what no single launch beats."""
+    x = torch.zeros(1, device="cuda")
+    return profiled_device_ms(lambda: x.add_(1.0), "elementwise")[0]
+
+
+def backward_times(gen, B, C, L):
+    """B3's backward at (B, C, L): held to its plain version, then its
+    device time (torch.profiler), its time per call between CUDA events, the
+    plain version's and the bound."""
+    backward = shv.sh_visibility_backward
     p, h, x = sh_inputs(gen, B, C, L)
-    out = shv.sh_visibility(p, h, x)
+    with torch.no_grad():
+        out = shv.sh_visibility(p, h, x)
     g = torch.randn(B, C, L, device="cuda", generator=gen)
-    err = hold_backward(p, h, x, True, g)
-    host_ms = time_ms(lambda: shv.sh_visibility_backward(p, x, out, g))
-    plain_ms = time_ms(
-        lambda: shv.sh_visibility_backward_plain(p, x, out, g), 10)
+    ref = shv.sh_visibility_backward_plain(p, x, out, g)
+    err = float((backward(p, x, out, g) - ref).abs().max() / ref.abs().max())
     t_ops = shv.backward_flops(B, C, L) / PEAK_FP32_FLOPS * 1e3
     t_bytes = shv.backward_bytes_moved(B, C, L) / PEAK_BYTES_PER_S * 1e3
-    dev_ms, _ = profiled_device_ms(
-        lambda: shv.sh_visibility_backward(p, x, out, g),
-        "sh_visibility_backward_kernel")
-    print(f"[kernel] sh_visibility_backward ({B},{C},{L}): max |kernel - "
-          f"plain| {err:.3e} of max |grad|, kernel {dev_ms * 1e3:.2f} us "
-          f"(torch.profiler), {host_ms * 1e3:.2f} us per call (CUDA events, "
-          f"host launch included), plain {plain_ms * 1e3:.2f} us, bound "
-          f"{max(t_ops, t_bytes) * 1e3:.2f} us", flush=True)
-    return {
-        "name": "sh_visibility_backward", "route": "cuda",
-        "source": "macarons_tpu_torch/csrc/sh_visibility.cu",
-        "replaces": "macarons_tpu/ops/pallas/sh_visibility.py:133",
-        "launches": None, "max_abs_err": max(worst, err),
-        "ms": dev_ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None, "shape": [B, C, L], "host_ms": host_ms,
-    }
+    return {"shape": [B, C, L], "max_abs_err": err,
+            "ms": profiled_device_ms(lambda: backward(p, x, out, g),
+                                     "sh_visibility_backward_kernel")[0],
+            "plain_ms": time_ms(lambda: shv.sh_visibility_backward_plain(
+                p, x, out, g), 10),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "host_ms": time_ms(lambda: backward(p, x, out, g))}
+
+
+def backward_row(worst, scone_shape, shared_shape):
+    """B3's backward at the SCONE step's per-candidate shape and, under
+    "shared_sample", at its shared-sample shape, with the launch floor;
+    its launches are the train phase's, filled in by the caller."""
+    gen = make_generator(torch.device("cuda"), SEED + 5)
+    main, shared = (backward_times(gen, *shape)
+                    for shape in (scone_shape, shared_shape))
+    floor = launch_floor_ms()
+    for t in (main, shared):
+        if not t["max_abs_err"] <= BACKWARD_REL:
+            fail(f"sh_visibility_backward {t['shape']} differs from its plain "
+                 f"version by {t['max_abs_err']} of max |grad|")
+        print(f"[kernel] sh_visibility_backward {tuple(t['shape'])}: max "
+              f"|kernel - plain| {t['max_abs_err']:.3e} of max |grad|, kernel "
+              f"{t['ms'] * 1e3:.2f} us (torch.profiler), "
+              f"{t['host_ms'] * 1e3:.2f} us per call (CUDA events, host "
+              f"launch included), plain "
+              f"{t['plain_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} "
+              f"us ({t['bound_by']}), launch floor {floor * 1e3:.2f} us",
+              flush=True)
+    return dict(main, name="sh_visibility_backward", route="cuda",
+                source="macarons_tpu_torch/csrc/sh_visibility.cu",
+                replaces="macarons_tpu/ops/pallas/sh_visibility.py:133",
+                launches=None, max_abs_err=max(worst, main["max_abs_err"]),
+                library_ms=None, launch_floor_ms=floor,
+                shared_sample=shared)
 
 
 def short(kernel):
@@ -1487,20 +1769,24 @@ def main():
     worst_raster = phase_raster_kernels(gen)
     small = phase_trajectory(gen, "trajectory", 0, ["sh_visibility"])
     phase_reference(gen, small["rt"], small["model"], small["call"])
+    state = gen.get_state()
     big = phase_trajectory(gen, "scene scale", SCENE_LEVELS, SCENE_KERNELS)
     if big["counts"]["rasterize_pairs"] or big["counts"]["rasterize_tiles"]:
         fail("the scene-scale capture ran the two-pass composition: "
              f"{big['counts']}")
+    phase_determinism(big, state)
     f9, size = phase_scene_render(big)
     phase_depth()
     rows = raster_rows(big["counts"], worst_raster, f9, size)
     rows.append(kernel_row(gen, big["counts"]["sh_visibility"], worst,
                            big["c_pad"], big["seq_len"]))
-    # B3's backward at the SCONE step's shape: the supervision window's
-    # cameras, one per candidate batch, and seq_len sampled points.
+    # B3's backward at the SCONE step's shapes: the supervision window's
+    # cameras, one per candidate batch, or all of them on one shared sample
+    # of seq_len points.
     shape = train_params(None, 1)
-    backward = backward_row(worst_backward, shape.n_interpolation_steps, 1,
-                            shape.seq_len)
+    n_cams, seq_len = shape.n_interpolation_steps, shape.seq_len
+    backward = backward_row(worst_backward, (n_cams, 1, seq_len),
+                            (1, n_cams, seq_len))
     train = phase_train()
     if [train["n_cams"], 1, train["seq_len"]] != backward["shape"]:
         fail(f"the SCONE step ran B3 at {train}, not {backward['shape']}")

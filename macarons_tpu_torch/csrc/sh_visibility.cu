@@ -30,11 +30,24 @@
 //
 //   grad_harm[b, l, k] = sum_c g[b, c, l] act'(out[b, c, l]) Y_k(dir(X_cam[b, c] - pts[b, l]))
 //
-// with act' = out (1 - out) for sigmoid and (out > 0) for relu. One thread per
-// (batch, point) loops over the cameras, recomputes the 64 basis terms with
-// the forward's recurrences and clamps, and accumulates 64 sums in registers;
-// the block stages its (128, 64) result in shared memory and writes it with
-// coalesced stores, each output once and without atomics.
+// with act' = out (1 - out) for sigmoid and (out > 0) for relu. Bound: it
+// reads 12 bytes of point, 8 of (out, g) per camera and writes 256 bytes of
+// gradient per point, so at the SCONE step's (4, 1, 2048) the bytes bound it
+// below a microsecond: its time is the launch and one short wave, so the
+// design spreads each point over many threads and keeps each thread short.
+// A point's 64 terms are split by order |m| between the block's 4 warps,
+// (0, 4), (1, 7), (2, 6) and (3, 5): 16 terms each (|m| = 0 has 8 terms,
+// |m| = j > 0 has 2 (8 - j)), so each warp runs one code path, keeps 16 sums
+// and replays only the prefix of the forward's Chebyshev and sin^m chains
+// that its orders need; the Legendre values of an order follow their own
+// recurrence from P_m^m. Every step is the forward's expression (the helpers
+// below serve both kernels), so both see the basis bit for bit. A warp's 32
+// lanes are 32 (point, camera slice) units: with C > 1 a point's cameras are
+// dealt to up to 8 slices, whose partial sums the block adds in a fixed order
+// (no atomics). The block's (n, 64) gradient tile is staged in shared memory
+// and written with coalesced 16-byte stores, each output once. 128-thread
+// blocks of 32 units: 256 blocks at both SCONE-step shapes, so every SM has
+// work.
 //
 // The interface is plain C: the Python wrapper passes raw device pointers and
 // the current CUDA stream, and checks the returned cudaError_t.
@@ -86,19 +99,49 @@ __constant__ float c_norm[kNHarm] = {
 __constant__ float c_pmm[kMaxL] = {1.f, -1.f, 3.f, -15.f, 105.f, -945.f,
                                    10395.f, -135135.f};
 
+// The basis's sums of products are spelt with round-to-nearest intrinsics,
+// which the compiler never fuses into an FMA: each kernel then computes every
+// basis term with the same roundings, whatever it contracts around them.
+
+// The angles of the direction (rx, ry, rz): cos and sin of theta (from the y
+// axis) and of phi, algebraic, with the JAX kernel's clamps.
+__device__ __forceinline__ void basis_angles(float rx, float ry, float rz,
+                                             float& ct, float& st,
+                                             float& cphi, float& sphi) {
+  const float r2 = __fadd_rn(__fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry)),
+                             __fmul_rn(rz, rz));
+  const float inv_r = 1.0f / sqrtf(fmaxf(r2, 1e-20f));
+  ct = fminf(fmaxf(ry * inv_r, -1.0f), 1.0f);
+  st = sqrtf(fmaxf(__fsub_rn(1.0f, __fmul_rn(ct, ct)), 0.0f));
+  const float inv_rst = inv_r / fmaxf(st, 1e-10f);
+  cphi = fminf(fmaxf(rz * inv_rst, -1.0f), 1.0f);
+  sphi = fminf(fmaxf(rx * inv_rst, -1.0f), 1.0f);
+}
+
+// (cos(m phi), sin(m phi)) -> (cos((m + 1) phi), sin((m + 1) phi)).
+__device__ __forceinline__ void chebyshev_next(float cphi, float sphi,
+                                               float& c, float& s) {
+  const float c_next = __fsub_rn(__fmul_rn(cphi, c), __fmul_rn(sphi, s));
+  s = __fadd_rn(__fmul_rn(sphi, c), __fmul_rn(cphi, s));
+  c = c_next;
+}
+
+// P_l^m from P_{l-1}^m and P_{l-2}^m.
+__device__ __forceinline__ float legendre_next(int ll, int m, float ct,
+                                               float p1, float p2) {
+  return __fsub_rn(__fmul_rn(static_cast<float>(2 * ll - 1) * ct, p1),
+                   __fmul_rn(static_cast<float>(ll + m - 1), p2)) /
+         static_cast<float>(ll - m);
+}
+
 // The 64 basis terms Y_k of the direction of (rx, ry, rz), in packing order,
 // each handed to term(k, y). The algebraic angles and clamps are the JAX
-// kernel's; both kernels call this, so they see the same basis.
+// kernel's.
 template <typename Term>
 __device__ __forceinline__ void for_each_basis_term(float rx, float ry,
                                                     float rz, Term term) {
-  const float r2 = rx * rx + ry * ry + rz * rz;
-  const float inv_r = 1.0f / sqrtf(fmaxf(r2, 1e-20f));
-  const float ct = fminf(fmaxf(ry * inv_r, -1.0f), 1.0f);
-  const float st = sqrtf(fmaxf(1.0f - ct * ct, 0.0f));
-  const float inv_rst = inv_r / fmaxf(st, 1e-10f);
-  const float cphi = fminf(fmaxf(rz * inv_rst, -1.0f), 1.0f);
-  const float sphi = fminf(fmaxf(rx * inv_rst, -1.0f), 1.0f);
+  float ct, st, cphi, sphi;
+  basis_angles(rx, ry, rz, ct, st, cphi, sphi);
 
   float cm[kMaxL];
   float sm[kMaxL];
@@ -108,8 +151,9 @@ __device__ __forceinline__ void for_each_basis_term(float rx, float ry,
   sm[1] = sphi;
 #pragma unroll
   for (int m = 2; m < kMaxL; ++m) {
-    cm[m] = cphi * cm[m - 1] - sphi * sm[m - 1];
-    sm[m] = sphi * cm[m - 1] + cphi * sm[m - 1];
+    cm[m] = cm[m - 1];
+    sm[m] = sm[m - 1];
+    chebyshev_next(cphi, sphi, cm[m], sm[m]);
   }
 
   float P[kMaxL][kMaxL];
@@ -128,9 +172,7 @@ __device__ __forceinline__ void for_each_basis_term(float rx, float ry,
   for (int m = 0; m < kMaxL; ++m) {
 #pragma unroll
     for (int ll = m + 2; ll < kMaxL; ++ll) {
-      P[ll][m] = (static_cast<float>(2 * ll - 1) * ct * P[ll - 1][m] -
-                  static_cast<float>(ll + m - 1) * P[ll - 2][m]) /
-                 static_cast<float>(ll - m);
+      P[ll][m] = legendre_next(ll, m, ct, P[ll - 1][m], P[ll - 2][m]);
     }
   }
 
@@ -149,6 +191,69 @@ __device__ __forceinline__ void for_each_basis_term(float rx, float ry,
       }
       term(k, y);
       ++k;
+    }
+  }
+}
+
+// The terms of order |m| = M, each handed to term(j, y) with j its place
+// among the order's terms (M = 0: j = l; M > 0: j = 2 (l - M) for +M and
+// 2 (l - M) + 1 for -M; store_order maps j to the packing index), by the
+// steps for_each_basis_term takes for them: the Chebyshev and sin^m chains
+// up to M, then the Legendre recurrence in l.
+template <int M, typename Term>
+__device__ __forceinline__ void for_each_term_of_order(float ct, float st,
+                                                       float cphi, float sphi,
+                                                       Term term) {
+  float c = M == 0 ? 1.0f : cphi;
+  float s = M == 0 ? 0.0f : sphi;
+#pragma unroll
+  for (int m = 2; m <= M; ++m) chebyshev_next(cphi, sphi, c, s);
+  float p_mm = 1.0f;
+  if (M > 0) {
+    float stm = 1.0f;
+#pragma unroll
+    for (int m = 1; m <= M; ++m) stm *= st;
+    p_mm = c_pmm[M] * stm;
+  }
+  float p2 = 0.0f;
+  float p1 = p_mm;
+#pragma unroll
+  for (int ll = M; ll < kMaxL; ++ll) {
+    float p = p_mm;
+    if (ll == M + 1) {
+      p = static_cast<float>(2 * M + 1) * ct * p_mm;
+    } else if (ll > M + 1) {
+      p = legendre_next(ll, M, ct, p1, p2);
+    }
+    if (ll > M) {
+      p2 = p1;
+      p1 = p;
+    }
+    const int k0 = ll * ll + ll;
+    if (M == 0) {
+      term(ll, c_norm[k0] * p);
+    } else {
+      term(2 * (ll - M), c_norm[k0 + M] * c * p);
+      term(2 * (ll - M) + 1, c_norm[k0 - M] * s * p);
+    }
+  }
+}
+
+constexpr int terms_of_order(int m) {
+  return m == 0 ? kMaxL : 2 * (kMaxL - m);
+}
+
+// The sums acc[j] of the terms of order M to their packing indices in row.
+template <int M>
+__device__ __forceinline__ void store_order(const float* acc, float* row) {
+#pragma unroll
+  for (int ll = M; ll < kMaxL; ++ll) {
+    const int k0 = ll * ll + ll;
+    if (M == 0) {
+      row[k0] = acc[ll];
+    } else {
+      row[k0 + M] = acc[2 * (ll - M)];
+      row[k0 - M] = acc[2 * (ll - M) + 1];
     }
   }
 }
@@ -190,44 +295,106 @@ sh_visibility_kernel(const float* __restrict__ pts, int pts_stride,
       use_sigmoid ? 1.0f / (1.0f + expf(-z)) : fmaxf(z, 0.0f);
 }
 
-__global__ void __launch_bounds__(kBlock)
+// The backward's block: 4 warps, one per pair of orders, over 32 (point,
+// camera slice) units. Its staging rows are 68 floats apart: 16-byte
+// aligned, so a phase of 8 lanes reads 8 float4s from 32 distinct banks,
+// while the warps' row-wise scalar writes meet at most 4 to a bank.
+constexpr int kUnits = 32;
+constexpr int kBackBlock = 4 * kUnits;
+constexpr int kMaxSlices = 8;
+constexpr int kBackRow = kNHarm + 4;
+
+// One unit's sums for the orders MA and MB over its cameras c = slice,
+// slice + slices, ..., written to its row of the block's staging tile.
+template <int MA, int MB>
+__device__ __forceinline__ void backward_unit(
+    const float* __restrict__ pt, const float* __restrict__ cam,
+    const float* __restrict__ out, const float* __restrict__ gout, int b,
+    int l, int C, int L, int slice, int slices, int use_sigmoid,
+    float* __restrict__ row) {
+  constexpr int kA = terms_of_order(MA);
+  float acc[kA + terms_of_order(MB)];
+#pragma unroll
+  for (int j = 0; j < kA + terms_of_order(MB); ++j) acc[j] = 0.0f;
+  if (pt != nullptr) {
+    const float px = pt[0], py = pt[1], pz = pt[2];
+    for (int c = slice; c < C; c += slices) {
+      const size_t o = (static_cast<size_t>(b) * C + c) * L + l;
+      const float v = out[o];
+      const float dact =
+          use_sigmoid ? v * (1.0f - v) : (v > 0.0f ? 1.0f : 0.0f);
+      const float gz = gout[o] * dact;
+      const float* xc = cam + (static_cast<size_t>(b) * C + c) * 3;
+      float ct, st, cphi, sphi;
+      basis_angles(xc[0] - px, xc[1] - py, xc[2] - pz, ct, st, cphi, sphi);
+      for_each_term_of_order<MA>(ct, st, cphi, sphi, [&](int j, float y) {
+        acc[j] += gz * y;
+      });
+      for_each_term_of_order<MB>(ct, st, cphi, sphi, [&](int j, float y) {
+        acc[kA + j] += gz * y;
+      });
+    }
+  }
+  store_order<MA>(acc, row);
+  store_order<MB>(acc + kA, row);
+}
+
+__global__ void __launch_bounds__(kBackBlock)
 sh_visibility_backward_kernel(const float* __restrict__ pts, int pts_stride,
                               const float* __restrict__ cam,
                               const float* __restrict__ out,
                               const float* __restrict__ gout,
                               float* __restrict__ gharm, int C, int L,
-                              int use_sigmoid) {
-  __shared__ float tile[kBlock * kRow];
-  const int b = blockIdx.y;
-  const int l0 = blockIdx.x * kBlock;
-  const int n = min(kBlock, L - l0);
-  const int t = threadIdx.x;
-
-  float acc[kNHarm];
-#pragma unroll
-  for (int k = 0; k < kNHarm; ++k) acc[k] = 0.0f;
-
-  if (t < n) {
-    const int l = l0 + t;
-    const float* p = pts + (static_cast<size_t>(b) * L + l) * pts_stride;
-    const float px = p[0], py = p[1], pz = p[2];
-    for (int c = 0; c < C; ++c) {
-      const size_t o = (static_cast<size_t>(b) * C + c) * L + l;
-      const float v = out[o];
-      const float dact = use_sigmoid ? v * (1.0f - v) : (v > 0.0f ? 1.0f : 0.0f);
-      const float gz = gout[o] * dact;
-      const float* xc = cam + (static_cast<size_t>(b) * C + c) * 3;
-      for_each_basis_term(xc[0] - px, xc[1] - py, xc[2] - pz,
-                          [&](int k, float y) { acc[k] += gz * y; });
-    }
+                              int n_points, int slices, int use_sigmoid) {
+  __shared__ __align__(16) float tile[kUnits * kBackRow];
+  const int per_block = kUnits / slices;
+  const int p0 = blockIdx.x * per_block;
+  const int unit = threadIdx.x % kUnits;
+  const int p = p0 + unit / slices;
+  const int b = p / L;
+  const float* pt = p < n_points ? pts + static_cast<size_t>(p) * pts_stride
+                                 : nullptr;
+  float* row = tile + unit * kBackRow;
+  const int slice = unit % slices;
+  const int l = p - b * L;
+  switch (threadIdx.x / kUnits) {
+    case 0:
+      backward_unit<0, 4>(pt, cam, out, gout, b, l, C, L, slice, slices,
+                          use_sigmoid, row);
+      break;
+    case 1:
+      backward_unit<1, 7>(pt, cam, out, gout, b, l, C, L, slice, slices,
+                          use_sigmoid, row);
+      break;
+    case 2:
+      backward_unit<2, 6>(pt, cam, out, gout, b, l, C, L, slice, slices,
+                          use_sigmoid, row);
+      break;
+    default:
+      backward_unit<3, 5>(pt, cam, out, gout, b, l, C, L, slice, slices,
+                          use_sigmoid, row);
   }
-#pragma unroll
-  for (int k = 0; k < kNHarm; ++k) tile[t * kRow + k] = acc[k];
   __syncthreads();
 
-  float* gb = gharm + (static_cast<size_t>(b) * L + l0) * kNHarm;
-  for (int i = t; i < n * kNHarm; i += kBlock) {
-    gb[i] = tile[(i / kNHarm) * kRow + (i % kNHarm)];
+  // The block's points are consecutive rows of grad_harm: one contiguous
+  // tile, each entry the sum of its point's slices in slice order, stored
+  // 16 bytes a lane.
+  constexpr int kQuads = kNHarm / 4;
+  const int n = min(per_block, n_points - p0);
+  float4* g = reinterpret_cast<float4*>(gharm + static_cast<size_t>(p0) *
+                                                    kNHarm);
+  for (int i = threadIdx.x; i < n * kQuads; i += kBackBlock) {
+    const float* src = tile + (i / kQuads) * slices * kBackRow +
+                       (i % kQuads) * 4;
+    float4 sum = *reinterpret_cast<const float4*>(src);
+    for (int t = 1; t < slices; ++t) {
+      const float4 v = *reinterpret_cast<const float4*>(src + t * kBackRow);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    g[i] = sum;
   }
 }
 
@@ -253,9 +420,14 @@ extern "C" int macarons_sh_visibility_backward(const float* pts,
                                                int B, int C, int L,
                                                int use_sigmoid, void* stream) {
   if (B == 0 || L == 0) return 0;
-  const dim3 grid((L + kBlock - 1) / kBlock, B);
-  sh_visibility_backward_kernel<<<grid, kBlock, 0,
+  int slices = 1;
+  while (slices < kMaxSlices && 2 * slices <= C) slices *= 2;
+  const int n_points = B * L;
+  const int per_block = kUnits / slices;
+  const int blocks = (n_points + per_block - 1) / per_block;
+  sh_visibility_backward_kernel<<<blocks, kBackBlock, 0,
                                   static_cast<cudaStream_t>(stream)>>>(
-      pts, pts_stride, cam, out, gout, gharm, C, L, use_sigmoid);
+      pts, pts_stride, cam, out, gout, gharm, C, L, n_points, slices,
+      use_sigmoid);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.cuda.sh_visibility import MAX_HARMONIC_RANK, sh_visibility
-from ..ops.knn import knn_points
+from ..ops.knn import knn_points_many, smallest_k
 from .attention import Dense, Embedding, Encoder, PCTransformer, _act, \
     gelu, layer_norm
 
@@ -54,8 +54,7 @@ def _subsample(length: int, total: int, valid=None, gen=None):
     else:
         noise = torch.rand(valid.shape, generator=gen, device=device)
     scores = noise + torch.where(valid, 0.0, 2.0)
-    return torch.topk(scores, min(length, total), dim=-1, largest=False,
-                      sorted=True).indices
+    return smallest_k(scores, min(length, total))[1]
 
 
 def _take(x, idx):
@@ -121,18 +120,18 @@ class SconeOcc(nn.Module):
         else:
             ds_factor = 1
 
-        down_pc, down_mask = pc, pc_mask
+        clouds = [(pc, pc_mask)][:self.n_scale]
+        for _ in range(self.n_scale - 1):
+            ds_len = max(clouds[-1][0].shape[1] // ds_factor, self.k_for_knn)
+            clouds.append(down(*clouds[-1], ds_len))
+        neighbours = knn_points_many([(x, c, m) for c, m in clouds],
+                                     self.k_for_knn)
         local_feats = []
-        for n_t in range(self.n_scale):
-            local_pc, _, _ = knn_points(x, down_pc, self.k_for_knn,
-                                        pc_mask=down_mask)
+        for n_t, (local_pc, _, _) in enumerate(neighbours):
             local_pc = local_pc - x[:, :, None, :]
             feats = getattr(self, f"local_transformers_{n_t}")(
                 local_pc.reshape(-1, self.k_for_knn, 3))
             local_feats.append(feats.reshape(B, S, self.local_feature_dim))
-            if n_t < self.n_scale - 1:
-                ds_len = max(down_pc.shape[1] // ds_factor, self.k_for_knn)
-                down_pc, down_mask = down(down_pc, down_mask, ds_len)
 
         x_features = self.x_embedding(x)
         g = global_features[:, None, :].expand(B, S, global_features.shape[-1])

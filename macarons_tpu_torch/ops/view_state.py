@@ -14,6 +14,7 @@ import torch
 
 from .geometry import FoVCamera, get_cartesian_coords, get_spherical_coords
 from .harmonics import real_spherical_harmonics_np
+from .sampling import cumsum_rows
 
 
 def _sphere_grid_np(n_elev: int, n_azim: int):
@@ -138,7 +139,7 @@ def sample_proxy_points(gen, X_world, preds, view_harmonics, n_sample: int,
         total = torch.sum(probs, dim=-1, keepdim=True)
         if idx is None:
             safe = torch.where(total > 0, probs, torch.ones_like(probs))
-            cdf = torch.cumsum(safe, dim=-1)
+            cdf = cumsum_rows(safe)
             cdf = cdf / cdf[..., -1:]
             u = torch.rand(*lead, n_sample, generator=gen,
                            device=X_world.device)

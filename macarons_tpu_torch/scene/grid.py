@@ -14,7 +14,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.knn import pairwise_sqdist
+from ..ops.knn import pairwise_sqdist, smallest_k
 
 _BIG = 1e9
 
@@ -173,7 +173,7 @@ def fill_cells(cfg: GridConfig, state: GridState, gen: torch.Generator, pts,
     all_valid = torch.cat([state.valid, staging_valid[:C]], dim=1)
     scores = torch.rand(all_valid.shape, generator=gen, device=gen.device).to(
         dev) + torch.where(all_valid, 0.0, _BIG)
-    take = torch.topk(scores, K, dim=1, largest=False, sorted=True).indices
+    take = smallest_k(scores, K)[1]
     return GridState(
         torch.gather(all_pts, 1, take[..., None].expand(C, K, 3)),
         torch.gather(all_feat, 1, take[..., None].expand(C, K, F)),

@@ -222,7 +222,7 @@ class OccupancyField:
                 sl = slice(i * chunk, (i + 1) * chunk)
                 process(pad_order[sl], pad_counts[sl] > 0)
         else:
-            top_cells = torch.topk(counts.float(), min(self.max_cells, C)).indices
+            top_cells = torch.argsort(-counts, stable=True)[:self.max_cells]
             process(top_cells, counts[top_cells] > 0)
         return proba[:N, None], pred_mask[:N], harmonics[:N]
 
@@ -250,7 +250,7 @@ class OccupancyField:
             noise = torch.rand((C,), generator=generator,
                                device=generator.device)
         rank_score = torch.where(counts > 0, noise.to(dev), -1.0)
-        top_cells = torch.topk(rank_score, min(self.max_cells, C)).indices
+        top_cells = torch.argsort(-rank_score, stable=True)[:self.max_cells]
         cell_ok = counts[top_cells] > 0
         if n_cells_active is not None:
             cell_ok = cell_ok & (torch.arange(top_cells.shape[0], device=dev)

@@ -13,14 +13,19 @@ import torch
 from chip_smoke import (
     BACKWARD_REL,
     FP32_SLACK,
+    SCENE_LEVELS,
     STEP_REL,
     edge_case_mesh,
     hold_backward,
+    hold_basis,
     hold_depth_step,
     hold_scone_step,
     item_boundary_args,
+    pole_and_pad_inputs,
     raster_args,
+    scene_scale_suite,
     sh_inputs,
+    smoke_params,
 )
 from macarons_tpu_torch.config import Params, load_params
 from macarons_tpu_torch.data.scenes import SceneDataset
@@ -41,11 +46,16 @@ from macarons_tpu_torch.ops import rasterizer as rast
 from macarons_tpu_torch.ops.cuda import sh_visibility as shv
 from macarons_tpu_torch.ops.cuda import tile_raster as tr
 from macarons_tpu_torch.ops.geometry import FoVCamera, look_at_view_transform
+from macarons_tpu_torch.ops.sampling import cumsum_rows
 from macarons_tpu_torch.scene.camera import get_camera_RT
 from macarons_tpu_torch.scene.depth_runtime import create_batch_for_depth_model
+from macarons_tpu_torch.scene.grid import empty_grid
 from macarons_tpu_torch.scene.memory import Memory
 from macarons_tpu_torch.scene.runtime import assemble_scene_field
-from macarons_tpu_torch.testers.scene import compute_trajectory
+from macarons_tpu_torch.testers.scene import (
+    compute_trajectory,
+    true_coverage_update,
+)
 from macarons_tpu_torch.trainers.train_macarons import (
     MacaronsRuntime,
     depth_cfg_from_params,
@@ -296,11 +306,8 @@ def test_many_depth_never_syncs(many_depth):
 
 
 def backward_inputs(gen, B, C, L, poles=False):
-    pts, harm, X_cam = sh_inputs(gen, B, C, L)
-    if poles:  # on the +-y axis of camera 0, and 1e6 pads
-        pts[:, : L // 3, 0] = X_cam[:, :1, 0]
-        pts[:, : L // 3, 2] = X_cam[:, :1, 2]
-        pts[:, L // 3: L // 2, :3] = 1e6
+    pts, harm, X_cam = (pole_and_pad_inputs if poles else sh_inputs)(
+        gen, B, C, L)
     g = torch.randn(B, C, L, device="cuda", generator=gen)
     return pts, harm, X_cam, g
 
@@ -308,12 +315,73 @@ def backward_inputs(gen, B, C, L, poles=False):
 @pytest.mark.parametrize("sig", [True, False])
 @pytest.mark.parametrize("B,C,L,poles", [(4, 1, 2048, False),
                                          (1, 4, 2048, False),
+                                         (3, 1, 1001, False),
+                                         (2, 5, 333, False),
                                          (2, 3, 300, True)])
 def test_sh_visibility_backward_kernel(gen, B, C, L, poles, sig):
     """B3's backward kernel, reached through autograd, against its plain
-    version: within 1e-5 of the largest gradient."""
+    version: within 1e-5 of the largest gradient. The SCONE step's shapes,
+    1001 points (a multiple of no block or lane-group size), 5 cameras
+    (slices of unequal length), the poles and the 1e6 pads."""
     pts, harm, X_cam, g = backward_inputs(gen, B, C, L, poles)
     assert hold_backward(pts, harm, X_cam, sig, g) <= BACKWARD_REL
+
+
+@pytest.mark.parametrize("poles", [False, True])
+def test_sh_visibility_backward_basis_is_the_forwards(gen, poles):
+    """The backward kernel's 64 basis terms are the forward kernel's, bit
+    for bit (chip_smoke.hold_basis)."""
+    pts, _, X_cam, _ = backward_inputs(gen, 2, 1, 300, poles)
+    assert hold_basis(pts, X_cam) == 0
+
+
+def test_cumsum_rows_repeats_on_card(gen):
+    """The sampling CDF of one row of 59,392 floats: one result in 200
+    runs (torch.cumsum's single-row scan on CUDA varies between runs). A
+    row of the 232-face scene's length, one tile of that scan, keeps
+    torch.cumsum's own bits."""
+    x = torch.rand(59392, device="cuda", generator=gen)
+    assert len({cumsum_rows(x).cpu().numpy().tobytes()
+                for _ in range(200)}) == 1
+    np.testing.assert_array_equal(cumsum_rows(x).cpu().numpy(),
+                                  torch.cumsum(x[None].expand(2, -1), 1)[0]
+                                  .cpu().numpy())
+    short = torch.rand(232, device="cuda", generator=gen)
+    assert len({cumsum_rows(short).cpu().numpy().tobytes()
+                for _ in range(200)}) == 1
+    np.testing.assert_array_equal(cumsum_rows(short).cpu().numpy(),
+                                  torch.cumsum(short, 0).cpu().numpy())
+
+
+def scene_scale_capture(root, seed):
+    """The scene-scale scene set up from ``seed`` (its GT surface sample),
+    one capture at start 0 and its true coverage."""
+    params = smoke_params(root)
+    dev = resolve_device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    item = SceneDataset(root)[0]
+    scene = setup_scene(params, item, gen, dev)
+    cam = scene.camera
+    cam.initialize(np.asarray(item["settings"].start_positions[0]))
+    images, depth, mask = cam.capture_image(
+        scene.verts_dev, scene.faces_dev, vert_colors=scene.colors_dev,
+        texture_atlas=scene.atlas_dev)
+    cov, covered = true_coverage_update(
+        scene, empty_grid(scene.cfg, dev), depth, cam.fov_camera.R,
+        cam.fov_camera.T, gen, params.zfar, 2.0 * params.test_resolution)
+    return [images, depth, mask, *scene.gt_scene, *covered], cov
+
+
+def test_scene_scale_capture_and_coverage_repeat(gen, tmp_path):
+    """Two set-ups of the 59,392-face scene from one seed, each with a
+    capture and its true coverage: the same GT sample, frames, covered grid
+    and coverage, bit for bit."""
+    root = scene_scale_suite(str(tmp_path / "scenes"), SCENE_LEVELS)
+    first, cov = scene_scale_capture(root, 0)
+    again, cov_again = scene_scale_capture(root, 0)
+    assert cov == cov_again
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 def test_compute_visibilities_carries_grad_fn(gen):
@@ -363,12 +431,16 @@ def test_depth_step_on_card_matches_cpu(gen):
                                           FP32_SLACK * errs["depth_grad_cpu"])
 
 
-def test_scone_step_on_card_matches_cpu(gen, tmp_path):
+def test_scone_step_on_card_matches_cpu(gen, tmp_path, monkeypatch):
     """One SCONE optimizer step on a small scene state (synth_00 after two
     random poses with perfect depth, narrow networks) on the card and on
     the CPU from one state, the draws shared (chip_smoke.hold_scone_step:
-    both losses and the gradients of SconeOcc and SconeVis)."""
+    both losses and the gradients of SconeOcc and SconeVis). The step's
+    saved state goes to ``tmp_path``, not over the smoke's."""
+    import chip_smoke
     from torch_port_helpers import TINY
+
+    monkeypatch.setattr(chip_smoke, "HELD_DIR", str(tmp_path))
 
     root = generate_suite(str(tmp_path / "scenes"), n_scenes=1)
     params = Params(dict(TINY, data_path=root, occ_curriculum_max_cells=8,

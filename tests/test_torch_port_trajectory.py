@@ -136,6 +136,42 @@ def test_occupancy_field(fields):
     np.testing.assert_allclose(proba.numpy(), np.asarray(jproba), atol=1e-4)
 
 
+def test_capped_field_tied_counts(decision):
+    """The capped field (full_field=False) on the decision state with at
+    most 2 eligible proxies per cell, so that more cells tie at 2 than the
+    field takes: the same cells scored as the JAX package's top_k (the lower
+    cell index first among ties) and the same outputs."""
+    params, scene, jocc, occ_vars, occ, *_ = decision
+    table = scene.cell_table
+    slots, smask = table.proxy_slots, table.proxy_slot_mask
+    proxy = scene.proxy
+    sup = np.array(proxy.supervision_occ)
+    elig = (sup[:, 0] > 0) & (np.asarray(proxy.out_of_field)[:, 0] < 1.0)
+    counts = np.zeros(slots.shape[0], int)
+    for c in range(slots.shape[0]):
+        s = slots[c][smask[c]]
+        s = s[elig[s]]
+        sup[s[2:], 0] = 0.0
+        counts[c] = min(len(s), 2)
+    k = params.n_cell_per_occ_forward_pass
+    assert (counts == 2).sum() > k and (counts > 2).sum() == 0
+    proxy = proxy._replace(supervision_occ=jnp.asarray(sup))
+    pred_cam = scene.camera.fov_camera
+    jproba, jmask, jharm = jR.occupancy_field_impl(
+        jocc, **occupancy_args(params))(
+        occ_vars, proxy, scene.surface_scene,
+        jR.device_cell_tables(scene.cfg, table, 3.0), pred_cam,
+        jax.random.PRNGKey(0), full_field=False)
+    proba, mask, harm = R.OccupancyField(occ, **occupancy_args(params))(
+        proxy_to_torch(proxy), grid_to_torch(scene.surface_scene),
+        R.device_cell_tables(GridConfig(*scene.cfg), table, 3.0),
+        camera_to_torch(pred_cam), full_field=False)
+    assert int(np.asarray(jmask).sum()) == 2 * k
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+    np.testing.assert_allclose(harm.numpy(), np.asarray(jharm), atol=1e-5)
+    np.testing.assert_allclose(proba.numpy(), np.asarray(jproba), atol=1e-4)
+
+
 @pytest.fixture(scope="module")
 def scoring_inputs(decision, fields):
     """The tester's field (carving fixture) and padded candidates."""
