@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from ..config import Params
+from ..utils.checkpoint import checkpoint_exists  # noqa: F401 (re-exported)
 from .attention import init_weights
 from .many_depth import ManyDepth
 from .scone import SconeOcc, SconeVis
@@ -98,10 +99,6 @@ def create_optimizers(params: Params, model: MacaronsModel
         opts["depth"] = torch.optim.AdamW(model.depth.parameters(),
                                           lr=depth_lr, weight_decay=0.01)
     return opts
-
-
-def checkpoint_exists(path: str) -> bool:
-    return os.path.exists(path + ".pt") or os.path.exists(path + ".msgpack")
 
 
 def save_macarons(path: str, model: MacaronsModel, metadata=None,

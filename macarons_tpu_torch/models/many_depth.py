@@ -76,7 +76,8 @@ class CostVolumeBuilder(nn.Module):
         P = fh * fw
         th = self.tan_half
         s = min(fh, fw)
-        ndc_x, ndc_y = ndc_pixel_grid(fh, fw, device=feat.device)
+        ndc_x, ndc_y = ndc_pixel_grid(fh, fw, device=feat.device,
+                                      dtype=feat.dtype)
         px, py = ndc_x.reshape(-1), ndc_y.reshape(-1)
         depths = torch.linspace(self.d_min, self.d_max, self.n_depth,
                                 device=feat.device)

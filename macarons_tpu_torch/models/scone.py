@@ -205,3 +205,47 @@ def compute_coverage_gain(pts, harmonics, X_cam, pts_mask=None,
     if pts_mask is not None:
         vis = vis * pts_mask[:, None, :]
     return vis.sum(dim=-1) / pts.shape[1]
+
+
+def compute_occupancy_probability(occ_model, pc, X, view_harmonics,
+                                  pc_mask=None, generator=None,
+                                  max_points_per_pass: int = 20000):
+    """SconeOcc over many query points, max_points_per_pass // B queries
+    of each cloud per pass, so the kNN distance matrices never hold every
+    query at once. Every pass takes the same random down-samples (the
+    generator's state is reset before each), as the JAX package applies
+    one key to every chunk.
+
+    pc (B, L, 3); X (B, S, 3); view_harmonics (B, S, H) -> (B, S, 1)."""
+    B, S = X.shape[0], X.shape[1]
+    chunk = max(min(max_points_per_pass // max(B, 1), S), 1)
+    state = None if generator is None else generator.get_state()
+    out = []
+    for a in range(0, S, chunk):
+        if state is not None:
+            generator.set_state(state)
+        out.append(occ_model(pc, X[:, a:a + chunk],
+                             view_harmonics[:, a:a + chunk],
+                             pc_mask=pc_mask, generator=generator))
+    return torch.cat(out, dim=1)
+
+
+def compute_coverage_gain_multiple(pts, harmonics, X_cam, n_cam: int,
+                                   max_harmonic_rank: int = 8,
+                                   use_sigmoid: bool = True):
+    """Joint gain of every ordered n_cam-tuple of candidates: the mean over
+    points of the best visibility among the tuple's cameras.
+
+    Returns (gains (B, C**n_cam), idx (C**n_cam, n_cam)), tuples in
+    row-major order of their camera indices."""
+    if n_cam not in (2, 3):
+        raise ValueError("n_cam must be 2 or 3")
+    vis = compute_visibilities(pts, harmonics, X_cam,
+                               max_harmonic_rank=max_harmonic_rank,
+                               use_sigmoid=use_sigmoid)  # (B, C, L)
+    C = X_cam.shape[1]
+    grids = torch.meshgrid(*([torch.arange(C, device=vis.device)] * n_cam),
+                           indexing="ij")
+    idx = torch.stack([g.reshape(-1) for g in grids], dim=-1)
+    gains = vis[:, idx].amax(dim=-2).sum(dim=-1) / pts.shape[1]
+    return gains, idx

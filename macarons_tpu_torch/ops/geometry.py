@@ -45,6 +45,28 @@ def get_spherical_coords(X):
     return r, elev, azim
 
 
+def sample_cameras_on_sphere(n_X: int, radius: float, device=None,
+                             dtype=torch.float32):
+    """Deterministic sphere lattice of camera positions: n_X (a square)
+    points, elevations and azimuths each over 0.9 of their range.
+    Returns (n_X, 3)."""
+    delta_theta = 0.9 * math.pi
+    delta_phi = 0.9 * 2 * math.pi
+    n_dim = int(math.sqrt(n_X))
+    d_theta = 2 * delta_theta / (n_dim - 1)
+    d_phi = 2 * delta_phi / (n_dim - 1)
+    inc = torch.linspace(0, n_dim - 1, n_dim, dtype=dtype, device=device)
+    thetas = (-delta_theta + inc * d_theta)[:, None].expand(n_dim, n_dim)
+    phis = (-delta_phi + inc * d_phi)[None, :].expand(n_dim, n_dim)
+    X = torch.stack((torch.cos(thetas) * torch.sin(phis), torch.sin(thetas),
+                     torch.cos(thetas) * torch.cos(phis)), dim=2)
+    return radius * X.reshape(-1, 3)
+
+
+def dot_prod(a, b, keepdim: bool = False):
+    return torch.sum(a * b, dim=-1, keepdim=keepdim)
+
+
 def normalize(v, eps: float = 1e-5):
     return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=eps)
 
@@ -141,6 +163,52 @@ class FoVCamera:
             * self.aspect_ratio[..., None]
         y_view = ndc_points[..., 1] * depth * tan_half
         return self.view_to_world(torch.stack((x_view, y_view, depth), dim=-1))
+
+
+@dataclass
+class OrthoCamera:
+    """Batched orthographic camera (PyTorch3D FoVOrthographicCameras
+    defaults: NDC box [-1, 1]^2, scale 1), as the GT generators use it.
+    R (..., 3, 3), T (..., 3); znear, zfar shaped like the batch."""
+
+    R: torch.Tensor
+    T: torch.Tensor
+    znear: torch.Tensor
+    zfar: torch.Tensor
+
+    @classmethod
+    def create(cls, R, T, znear=0.5, zfar=100.0):
+        batch = R.shape[:-2]
+
+        def b(v):
+            return torch.as_tensor(v, dtype=R.dtype, device=R.device).expand(
+                batch).clone()
+
+        return cls(R, T.to(R.dtype), b(znear), b(zfar))
+
+    def world_to_view(self, pts):
+        return torch.matmul(pts, self.R) + self.T[..., None, :]
+
+    def view_to_world(self, pts_view):
+        return torch.matmul(pts_view - self.T[..., None, :],
+                            self.R.transpose(-1, -2))
+
+    def camera_center(self):
+        return camera_center_from_RT(self.R, self.T)
+
+    def project_view(self, pts_view):
+        """View-space points -> (x, y, (z - znear) / (zfar - znear))."""
+        zf = self.zfar[..., None]
+        zn = self.znear[..., None]
+        z_ndc = (pts_view[..., 2] - zn) / (zf - zn)
+        return torch.stack((pts_view[..., 0], pts_view[..., 1], z_ndc), dim=-1)
+
+    def transform_points(self, pts):
+        return self.project_view(self.world_to_view(pts))
+
+    def unproject_ndc_depth(self, ndc_points):
+        """(x, y, view depth) -> world points."""
+        return self.view_to_world(ndc_points[..., :3])
 
 
 def ndc_pixel_grid(height: int, width: int, device=None,

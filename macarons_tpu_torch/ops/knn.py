@@ -24,6 +24,12 @@ def pairwise_sqdist(x, y):
     return torch.clamp(x2 + y2.transpose(-1, -2) - 2.0 * xy, min=0.0)
 
 
+def cdist(x, y):
+    """Euclidean distance matrix (torch.cdist semantics, through
+    pairwise_sqdist as the JAX package computes it)."""
+    return torch.sqrt(pairwise_sqdist(x, y))
+
+
 def knn_gather(pc, idx):
     """pc (..., M, D), idx (..., N, K) -> (..., N, K, D)."""
     batch = idx.shape[:-2]
@@ -135,3 +141,21 @@ def knn_points(x, pc, k: int, pc_mask=None, big: float = 1e10):
     Invalid reference points (pc_mask False) get distance ``big``, and
     valid ones must lie nearer, as the JAX package's masked kNN assumes."""
     return knn_points_many([(x, pc, pc_mask)], k, big)[0]
+
+
+def get_k_nearest_ray_points(X_camera, X, pc, k: int):
+    """For each point of X, the k points of pc whose rays from the camera
+    align best with its own (largest dot products of unit rays first, the
+    lower index first among equal ones, as ``jax.lax.top_k``).
+    X_camera (n_cam, 3); X (n_cam, S, 3); pc (n_cam, L, 3).
+    Returns (gathered (n_cam, S, k, 3), dots (n_cam, S, k), idx)."""
+    X_cam = X_camera[:, None, :]
+    rays = pc - X_cam
+    rays = rays / torch.clamp(torch.linalg.norm(rays, dim=-1, keepdim=True),
+                              min=1e-12)
+    x_rays = X - X_cam
+    x_rays = x_rays / torch.clamp(torch.linalg.norm(x_rays, dim=-1,
+                                                    keepdim=True), min=1e-12)
+    dots = torch.matmul(x_rays, rays.transpose(-1, -2))
+    top, idx = torch.sort(dots, dim=-1, descending=True, stable=True)
+    return knn_gather(pc, idx[..., :k]), top[..., :k], idx[..., :k]

@@ -1,4 +1,5 @@
-"""Mesh rasterizer (port of macarons_tpu/ops/rasterizer.py, FoV cameras).
+"""Mesh rasterizer (port of macarons_tpu/ops/rasterizer.py): FoV and
+orthographic cameras.
 
 Three paths compute per-pixel nearest-face id, view-space zbuf (empty pixels
 -1, the PyTorch3D convention) and barycentrics:
@@ -25,6 +26,12 @@ above that ``"tiled"`` for CUDA tensors and ``"binned"`` for CPU tensors, as
 the JAX package takes its Pallas path on the TPU and its binned path on the
 CPU. Under per-tile overflow the binned and tiled paths truncate different
 faces, by design.
+
+A camera enters only through its projection (``project_verts_batch``,
+``project_fv_batch``): x and y in NDC, z in view space. Every path tests
+``z > eps`` and interpolates 1/z for perspective-correct barycentrics on
+that view-space z, for an ``OrthoCamera`` as for a ``FoVCamera``, as the
+JAX package does.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ import torch
 
 from .cuda.tile_raster import BLOCK_ELEMS, f32, ieee_div, nearest_face, \
     rasterize_tiled, rasterize_tiles
-from .geometry import FoVCamera, ndc_pixel_grid
+from .geometry import FoVCamera, OrthoCamera, ndc_pixel_grid
 
 
 class Fragments(NamedTuple):
@@ -377,7 +384,7 @@ def _rasterize_tiled(f9, image_size, tile: int, max_faces_per_tile: int,
                      _untile(bary, N, H, W, tile))
 
 
-def project_verts_batch(verts, camera: FoVCamera):
+def project_verts_batch(verts, camera):
     """World verts (V, 3) -> per-camera (N, V, 3) of (x_ndc, y_ndc, z_view)."""
     n_cam = camera.R.shape[0]
     view = camera.world_to_view(verts[None].expand(n_cam, *verts.shape))
@@ -385,7 +392,7 @@ def project_verts_batch(verts, camera: FoVCamera):
     return torch.cat((ndc[..., :2], view[..., 2:]), dim=-1)
 
 
-def project_fv_batch(verts, faces, camera: FoVCamera):
+def project_fv_batch(verts, faces, camera):
     """World verts + faces -> per-camera face data (N, 9, F), rows
     x0 y0 z0 x1 y1 z1 x2 y2 z2 (x/y NDC, z view), gathered once in world
     space and projected per camera."""
@@ -398,15 +405,18 @@ def project_fv_batch(verts, faces, camera: FoVCamera):
     return out.reshape(n_cam, F, 9).transpose(1, 2)
 
 
-def rasterize(verts, faces, camera: FoVCamera, image_size, chunk: int = 256,
+def rasterize(verts, faces, camera, image_size, chunk: int = 256,
               perspective_correct: bool = True, face_mask=None,
               method: str = "auto", tile: int = 16,
               max_faces_per_tile: int = 1024,
               binning: str = "pairlist") -> Fragments:
-    """Rasterize a mesh under a batched FoV camera -> (N, H, W[, 3]).
+    """Rasterize a mesh under a batched FoV or orthographic camera ->
+    (N, H, W[, 3]).
 
     method: "scan", "binned", "tiled" or "auto" (see the module docstring);
     binning ("pairlist" or "topk") selects the tiled path's lists."""
+    if not isinstance(camera, (FoVCamera, OrthoCamera)):
+        raise TypeError(type(camera))
     F = faces.shape[0]
     image_size = tuple(image_size)
     if method == "auto":

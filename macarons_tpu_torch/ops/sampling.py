@@ -40,24 +40,98 @@ def compute_mesh_face_area(verts, faces):
     return 0.5 * torch.linalg.norm(torch.linalg.cross(a, b, dim=-1), dim=-1)
 
 
-def sample_points_on_mesh_surface(gen, verts, faces, n_sample: int):
-    """Area-weighted uniform surface sampling: inverse-CDF triangle choice,
-    then barycentric points with fold-over reflection (o = vertex 2)."""
-    areas = compute_mesh_face_area(verts, faces)
-    cdf = cumsum_rows(areas)
+def _rand(gen, shape, device, normal: bool = False):
+    """Uniform [0, 1) (or standard normal) draws from ``gen`` on the
+    generator's own device, moved to ``device``: a CPU generator serves
+    data on the card with the draws it gives the CPU."""
+    draw = torch.randn if normal else torch.rand
+    return draw(shape, generator=gen, device=gen.device).to(device)
+
+
+def sample_categorical_cdf(gen, probs, n_sample: int, u=None):
+    """n_sample indices ~ probs by inverse-CDF search; ``u`` (n_sample,)
+    injects the uniform draws."""
+    cdf = cumsum_rows(probs)
     cdf = cdf / cdf[-1]
-    u = torch.rand(n_sample, generator=gen, device=verts.device)
-    idx = torch.clamp(torch.searchsorted(cdf, u), 0, faces.shape[0] - 1)
-    fc = verts[faces[idx]]
+    if u is None:
+        u = _rand(gen, (n_sample,), probs.device)
+    return torch.clamp(torch.searchsorted(cdf, u), 0, probs.shape[0] - 1)
+
+
+def sample_mesh_triangle(gen, verts, faces, n_sample: int, face_mask=None,
+                         u=None):
+    """Area-weighted triangle indices (n_sample,); masked faces get no
+    probability."""
+    areas = compute_mesh_face_area(verts, faces)
+    if face_mask is not None:
+        areas = torch.where(face_mask, areas, 0.0)
+    return sample_categorical_cdf(gen, areas, n_sample, u=u)
+
+
+def sample_points_on_mesh_faces(gen, verts, faces, sample_face_indices,
+                                vert_features=None, alpha=None, beta=None):
+    """Uniform points on the selected triangles: alpha, beta ~ U[0, 1)
+    (drawn in that order, each (S, 1), or injected), reflected where
+    alpha + beta > 1; point = o + alpha a + beta b with o = vertex 2. With
+    ``vert_features`` (V, C) also the interpolated features (S, C)."""
+    n = sample_face_indices.shape[0]
+    sf = faces[sample_face_indices]
+    fc = verts[sf]
     o = fc[:, 2]
     a = fc[:, 0] - o
     b = fc[:, 1] - o
-    alpha = torch.rand(n_sample, 1, generator=gen, device=verts.device)
-    beta = torch.rand(n_sample, 1, generator=gen, device=verts.device)
+    if alpha is None:
+        alpha = _rand(gen, (n, 1), verts.device)
+    if beta is None:
+        beta = _rand(gen, (n, 1), verts.device)
     flip = (alpha + beta) > 1.0
     alpha = torch.where(flip, 1.0 - alpha, alpha)
     beta = torch.where(flip, 1.0 - beta, beta)
-    return o + alpha * a + beta * b
+    pts = o + alpha * a + beta * b
+    if vert_features is None:
+        return pts
+    bary = torch.cat((alpha, beta, 1.0 - alpha - beta), dim=-1)
+    return pts, torch.einsum("sk,skc->sc", bary, vert_features[sf])
+
+
+def sample_points_on_mesh_surface(gen, verts, faces, n_sample: int,
+                                  vert_features=None, face_mask=None):
+    """Area-weighted uniform surface sampling: the triangle draws, then
+    alpha and beta."""
+    idx = sample_mesh_triangle(gen, verts, faces, n_sample,
+                               face_mask=face_mask)
+    return sample_points_on_mesh_faces(gen, verts, faces, idx,
+                                       vert_features=vert_features)
+
+
+def sample_X_in_box(gen, x_range, n_sample: int, u=None, device=None):
+    """Uniform points in the centred box of side(s) ``x_range``; ``u``
+    (n_sample, 3) injects the draws."""
+    if u is None:
+        u = _rand(gen, (n_sample, 3), device or gen.device)
+    return -x_range / 2.0 + x_range * u
+
+
+def sample_X_in_ball(gen, x_radius: float, n_sample: int, normal=None,
+                     u=None, device=None):
+    """Points in the centred ball of radius x_radius with the reference's
+    radius law r = R sqrt(U) (not volume-uniform). Draws: directions
+    ``normal`` (n_sample, 3), then ``u`` (n_sample, 1)."""
+    if normal is None:
+        normal = _rand(gen, (n_sample, 3), device or gen.device, normal=True)
+    if u is None:
+        u = _rand(gen, (n_sample, 1), normal.device)
+    units = normal / torch.clamp(torch.linalg.norm(normal, dim=1,
+                                                   keepdim=True), min=1e-12)
+    return x_radius * torch.sqrt(u) * units
+
+
+def random_permutation_take(gen, x, n_keep: int, perm=None):
+    """x[randperm(len(x))[:n_keep]]; ``perm`` injects the permutation."""
+    if perm is None:
+        perm = torch.randperm(x.shape[0], generator=gen,
+                              device=gen.device).to(x.device)
+    return x[perm[:n_keep]]
 
 
 def random_subsample_mask(gen, mask, n_keep: int, big: float = 1e9):
@@ -65,8 +139,7 @@ def random_subsample_mask(gen, mask, n_keep: int, big: float = 1e9):
 
     Returns (idx (n_keep,), valid (n_keep,)); valid is False where fewer than
     n_keep entries were available."""
-    n = mask.shape[0]
-    scores = torch.rand(n, generator=gen, device=mask.device) \
+    scores = _rand(gen, mask.shape, mask.device) \
         + torch.where(mask, 0.0, big)
     vals, idx = smallest_k(scores, n_keep)
     return idx, vals < big * 0.5

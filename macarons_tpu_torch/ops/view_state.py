@@ -74,16 +74,62 @@ def _bin_directions(ray_elev, ray_azim, n_elev: int, n_azim: int,
     return torch.remainder(indices, n_elev * n_azim)
 
 
-def compute_view_state(pts, X_view, n_elev: int, n_azim: int):
-    """Binary histogram of view directions: pts (B, L, >=3), X_view (V, 3)
-    shared cameras -> (B, L, n_elev*n_azim)."""
-    rays = X_view[None, None, :, :] - pts[..., :3][:, :, None, :]
+def compute_view_state(pts, X_view, n_elev: int, n_azim: int,
+                       view_mask=None):
+    """Binary histogram of view directions per point.
+
+    pts (B, L, >=3); X_view (V, 3) cameras shared by every cloud, or
+    (B, V, 3) per cloud; view_mask (V,) or (B, V) leaves padded views out.
+    Returns (B, L, n_elev*n_azim) in the points' floating type."""
+    if X_view.dim() == 2:
+        X_view = X_view[None]
+    rays = X_view[:, None, :, :] - pts[..., :3][:, :, None, :]
     _, ray_elev, ray_azim = get_spherical_coords(rays)
     indices = _bin_directions(ray_elev, ray_azim, n_elev, n_azim,
                               elev_upper_clamp=n_elev - 1)  # (B, L, V)
     out = torch.zeros(*indices.shape[:2], n_elev * n_azim,
                       dtype=pts.dtype, device=pts.device)
-    return out.scatter_(-1, indices, 1.0)
+    if view_mask is None:
+        return out.scatter_(-1, indices, 1.0)
+    if view_mask.dim() == 1:
+        view_mask = view_mask[None]
+    seen = view_mask[:, None, :].to(pts.dtype).expand(indices.shape)
+    return out.scatter_reduce_(-1, indices, seen, reduce="amax")
+
+
+def update_view_state(view_state, pts, X_view, n_elev: int, n_azim: int,
+                      pts_mask=None):
+    """OR-accumulate the views of X_view into ``view_state``."""
+    new = compute_view_state(pts, X_view, n_elev, n_azim)
+    if pts_mask is not None:
+        new = new * pts_mask[..., None]
+    return torch.maximum(view_state, new)
+
+
+def sphere_grid_angles(n_elev: int, n_azim: int, device=None):
+    """The (elev, azim) grid in radians, elev-major, float32:
+    elev_i = -pi/2 + (i+1)/(n_elev+1) pi, azim_j = 2 pi j / n_azim."""
+    elev, azim = _sphere_grid_np(n_elev, n_azim)
+    return (torch.as_tensor(elev, dtype=torch.float32, device=device),
+            torch.as_tensor(azim, dtype=torch.float32, device=device))
+
+
+def get_cameras_on_sphere(n_elev: int, n_azim: int, camera_dist: float,
+                          pole_cameras: bool = False, device=None):
+    """Candidate camera positions on a sphere, elev-major, with a camera
+    just off each pole first and last when ``pole_cameras``.
+    Returns (X_cam (n_cam, 3), dist, elev_deg, azim_deg)."""
+    elev = [-90.0 + (i + 1) / (n_elev + 1) * 180.0 for i in range(n_elev)
+            for _ in range(n_azim)]
+    azim = [360.0 * j / n_azim for _ in range(n_elev) for j in range(n_azim)]
+    if pole_cameras:
+        elev = [-89.9] + elev + [89.9]
+        azim = [0.0] + azim + [0.0]
+    elev = torch.tensor(elev, dtype=torch.float32, device=device)
+    azim = torch.tensor(azim, dtype=torch.float32, device=device)
+    dist = torch.full_like(elev, camera_dist)
+    X_cam = get_cartesian_coords(dist, elev, azim, in_degrees=True)
+    return X_cam, dist, elev, azim
 
 
 def view_space_permutation(camera: FoVCamera, n_elev: int, n_azim: int):
@@ -99,6 +145,37 @@ def view_space_permutation(camera: FoVCamera, n_elev: int, n_azim: int):
     _, ray_elev, ray_azim = get_spherical_coords(dirs)
     return _bin_directions(ray_elev, ray_azim, n_elev, n_azim,
                            elev_upper_clamp=n_elev // 2)
+
+
+def move_view_state_to_view_space(view_state, camera: FoVCamera,
+                                  n_elev: int, n_azim: int):
+    """The histogram (..., n_values) gathered into ``camera``'s frame."""
+    return view_state[..., view_space_permutation(camera, n_elev, n_azim)]
+
+
+def filter_proxy_points_mask(view_cameras: FoVCamera, X, pc,
+                             filter_tol: float = 0.01, pc_mask=None,
+                             view_mask=None):
+    """Mask of the points X (N, 3) whose projections lie within the
+    projected box of the observed cloud pc (M, 3), widened by filter_tol,
+    for every view camera (batch (n_view,)); padded cameras (view_mask
+    False) constrain nothing."""
+    n_view = view_cameras.R.shape[0]
+    X_proj = view_cameras.transform_points(
+        X[None].expand(n_view, *X.shape))[..., :2]
+    pc_proj = view_cameras.transform_points(
+        pc[None].expand(n_view, *pc.shape))[..., :2]
+    if pc_mask is not None:
+        m = pc_mask[None, :, None]
+        max_proj = torch.where(m, pc_proj, -1e10).amax(dim=-2, keepdim=True)
+        min_proj = torch.where(m, pc_proj, 1e10).amin(dim=-2, keepdim=True)
+    else:
+        max_proj = pc_proj.amax(dim=-2, keepdim=True)
+        min_proj = pc_proj.amin(dim=-2, keepdim=True)
+    ok = (X_proj < max_proj + filter_tol) & (X_proj > min_proj - filter_tol)
+    if view_mask is not None:
+        ok = ok | ~view_mask[:, None, None]
+    return ok.all(dim=-1).all(dim=0)
 
 
 def view_harmonics_weights(degree: int, n_elev: int, n_azim: int, device):

@@ -160,3 +160,13 @@ def load_macarons_weights(model, path: str):
     if model.depth is not None:
         model.depth.load_state_dict(flax_to_torch(tree["depth"]))
     return model
+
+
+def load_module_weights(module, path: str):
+    """Load the ``params`` of a JAX checkpoint (a pretrainer's Flax
+    ``TrainState``, or a variables dict) into ``module``."""
+    tree = read_msgpack(path)
+    state = flax_to_torch({"params": tree["params"]})
+    dev = next(module.parameters()).device
+    module.load_state_dict({k: v.to(dev) for k, v in state.items()})
+    return module

@@ -94,3 +94,37 @@ def camera_to_torch(cam):
     from macarons_tpu_torch.ops.geometry import FoVCamera
 
     return FoVCamera(*(to_torch(a) for a in cam))
+
+
+def make_shapenet_root(tmp_path_factory, n_meshes=8):
+    """A ShapeNet-format root of ``n_meshes`` boxes with the port's GT, at
+    the conftest ``shapenet_root``'s sizes and split layout (that fixture
+    builds its GT with the JAX package, ~100 s on an 8-core sandbox)."""
+    import json
+
+    from macarons_tpu_torch.data import shapenet as sng
+
+    root = tmp_path_factory.mktemp("shapenet_port")
+    cfg = sng.ShapeNetGTConfig(
+        n_points_surface=256, part_pc_length=128, n_samples_for_occupancy=400,
+        n_max_samples=800, image_size=48, surface_epsilon=0.1)
+    corners = torch.tensor([[x, y, z] for x in (-1.0, 1.0)
+                            for y in (-1.0, 1.0) for z in (-1.0, 1.0)])
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6),
+             (0, 2, 6, 4), (1, 5, 7, 3)]
+    faces = torch.tensor([f for a, b, c, d in quads
+                          for f in ((a, b, c), (a, c, d))])
+    gen = torch.Generator().manual_seed(7)
+    models = []
+    for i in range(n_meshes):
+        verts = sng.adjust_mesh_diagonally(
+            corners * torch.tensor([1.0, 0.6 + 0.1 * i, 0.8]), 1.0)
+        mdir = root / "02000000" / f"model_{i}"
+        mdir.mkdir(parents=True)
+        (mdir / "model.obj").write_text("# placeholder\n")
+        sng.save_mesh_gt(sng.generate_mesh_gt(gen, verts, faces, cfg),
+                         str(mdir / "tensors"))
+        models.append(f"02000000/model_{i}/model.obj")
+    for split in ("train_list.json", "val_list.json", "all_test_list.json"):
+        (root / split).write_text(json.dumps({"models": models}))
+    return str(root)
