@@ -33,19 +33,30 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      time at B 1 and B 4;
   7. train: run_training with the default training config on the
      59,392-face scene, epoch 0 (4 poses, a remap at pose 2), then a resumed
-     run through epoch 1 with depth and SCONE replay; per-pose phase times,
-     the checks of phase_train; one depth step (B 1: the card's float64
-     gradient against the CPU's, its float32 one against the step's float32
-     noise from one-ulp replicas, TF32 off) and one SCONE step on the card
+     run through epoch 1 with depth and SCONE replay, validating on the
+     scene after each epoch (2 poses, the coverage_validated_ checkpoint);
+     per-pose phase times, the checks of phase_train; one depth step (B 1:
+     the card's float64 gradient against the CPU's, its float32 one against
+     the step's float32 noise from one-ulp replicas, TF32 off) and one
+     SCONE step on the card
      against the CPU, the SCONE step's inputs saved under chiprun_out/ and
      what sets the card's SconeOcc error printed (its kNN and max-pool
      picks against float64's); the depth step at B 4 and the SCONE step
-     timed alone;
+     timed alone; then depth_pretrain: the depth pretrainer over the train
+     phase's frames at 256x456 with 96 planes, batch 4 (an epoch, a resumed
+     second, an epoch with learn_pose), each checkpoint reloaded two ways,
+     the learn_pose step held like the depth step, bfloat16 convolutions
+     and the batched stem against float32, step times;
   8. time each kernel at the shapes of the scene-scale path (B3's backward
      at the SCONE step's two, beside the launch floor), and hold it against
      its twin there; time the two-pass composition (B1, B2, merge) against
      the fused launch, in turns;
-  9. scone_pretrain: a ShapeNet-format root of 8 synthetic meshes (two
+  9. scene_data: the scene-data CLI on the 59,392-face scene and the
+     occupied poses of a 12,288-face cube, held against the CPU's tiled
+     plain path (poses and flags), rasterize_tiled with a face mask twice
+     per position and no culled face winning a pixel; time per position,
+     device and host;
+ 10. scone_pretrain: a ShapeNet-format root of 8 synthetic meshes (two
      above 4096 faces) and its GT at ShapeNetGTConfig's widths (52 FoV and
      6 orthographic cameras at 512x512: the tiled path), the occupancy and
      coverage-gain pretrainers at their configs' widths (2 epochs of 2
@@ -55,15 +66,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      step held card against CPU; B1 + B2 at the GT captures' shapes and B3
      and its backward at (3, 52, 2048), held against their plain versions
      and timed;
- 10. print the kernel table (JSON), the card's name and power limit, and the
+ 11. print the kernel table (JSON), the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
 Each trajectory prints its pose sequence and coverages. A saved SCONE step
 replays on the card and the CPU with
     python3 -c "import chip_smoke as cs; cs.replay_scone_step(
         cs.load_scone_step('chiprun_out/scone_step.pt.gz'))"
 Each trajectory (the train phase: both runs together; scone_pretrain: GT,
-both pretrainers and the tester together) runs with every kernel's launch
-count set to 0 just before it and read just after. Needs CUDA; never falls
+both pretrainers and the tester together; scene_data: the CLI's run, then
+the cube's) runs with every kernel's launch count set to 0 just before it
+and read just after. Needs CUDA; never falls
 back to the CPU.
 """
 
@@ -74,6 +86,7 @@ import gc
 import gzip
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -88,10 +101,11 @@ from macarons_tpu_torch.config import (
     load_params,
     normalize_test_config,
 )
-from macarons_tpu_torch.data import datasets, generate_shapenet_data, \
-    shapenet
+from macarons_tpu_torch.data import datasets, generate_scene_data, \
+    generate_shapenet_data, shapenet
 from macarons_tpu_torch.data.mesh_io import Mesh, load_obj, save_obj
-from macarons_tpu_torch.data.scenes import SceneDataset
+from macarons_tpu_torch.data.scenes import SceneDataset, SceneSettings, \
+    compute_occupied_poses, compute_scene_settings, pose_camera
 from macarons_tpu_torch.data.synthetic_suite import build_scene_mesh, \
     generate_suite
 from macarons_tpu_torch.models import scone as scone_model
@@ -99,6 +113,7 @@ from macarons_tpu_torch.models.attention import PCTransformer, init_weights
 from macarons_tpu_torch.models.macarons import (
     MacaronsModel,
     create_macarons_model,
+    create_many_depth,
     create_optimizers,
     init_macarons_weights,
     load_macarons,
@@ -111,8 +126,9 @@ from macarons_tpu_torch.ops.geometry import FoVCamera, look_at_view_transform
 from macarons_tpu_torch.ops.knn import knn_gather
 from macarons_tpu_torch.ops.projection import disparity_to_depth
 from macarons_tpu_torch.ops.sampling import compute_mesh_face_area, cumsum_rows
-from macarons_tpu_torch.scene.camera import get_camera_RT
+from macarons_tpu_torch.scene.camera import PoseSpace, get_camera_RT
 from macarons_tpu_torch.scene.depth_runtime import (
+    depth_loss,
     depth_masks,
     error_table,
     many_depth_inputs,
@@ -121,7 +137,8 @@ from macarons_tpu_torch.scene.depth_runtime import (
 from macarons_tpu_torch.scene.memory import Memory
 from macarons_tpu_torch.testers import shapenet as shapenet_tester
 from macarons_tpu_torch.testers.scene import compute_trajectory
-from macarons_tpu_torch.trainers import pretrain_occ, pretrain_vis
+from macarons_tpu_torch.trainers import pretrain_depth, pretrain_occ, \
+    pretrain_vis
 from macarons_tpu_torch.trainers.train_macarons import (
     MacaronsRuntime,
     run_training,
@@ -158,6 +175,7 @@ SCENE_KERNELS = ["rasterize_tiled", "sh_visibility"]
 TRAIN_KERNELS = ["rasterize_tiled", "sh_visibility", "sh_visibility_backward"]
 TRAIN_POSES = 4
 TRAIN_REMAP = 2
+VAL_POSES = 2
 # Card against CPU for the optimizer steps: the least gradient error,
 # relative to the network's largest gradient, that fails a step (see
 # FP32_SLACK): where the CPU's float32 gradient is within a few ulps of the
@@ -230,17 +248,20 @@ def profiled_device_ms(fn, kernel_name, iters=20):
     the mean time of every kernel it launches (``kernel_name``, its
     epilogue, the item table's kernels), each launched once per call,
     summed. Each mean is over the launches the trace holds, which may be
-    fewer than ``iters``. Returns (ms per call, {kernel: ms per call});
-    a trace that holds no device time for ``kernel_name`` is taken once
-    more (one did, after the train phase: PERF.md §6), and a second
-    such trace fails the run."""
+    fewer than ``iters``: a trace can lose some of its device events,
+    more the more the process has traced before (on the H100, 1 of 20
+    launches after 100,000 traced ones, 3 of 20 after 200,000; late in a
+    smoke all of a 20-launch trace, PERF.md §7). So a trace that holds no
+    device time for ``kernel_name`` is taken again with 5 and then 50
+    times the calls, and a third such trace fails the run. Returns (ms
+    per call, {kernel: ms per call})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    for n in (iters, 5 * iters, 50 * iters):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(n):
                 fn()
             torch.cuda.synchronize()
         per = {}
@@ -254,6 +275,9 @@ def profiled_device_ms(fn, kernel_name, iters=20):
                 per[e.key] = us / 1e3 / e.count
         if any(kernel_name in k for k in per):
             return sum(per.values()), per
+        print(f"[profiler] a trace of {n} calls holds no device time for "
+              f"{kernel_name} (its device events: {sorted(per)})",
+              flush=True)
     fail(f"the profiler trace holds no device time for {kernel_name}")
 
 
@@ -500,13 +524,15 @@ def hold_raster(name, kernel, plain, args):
     return err, float((out[1] >= 0).float().mean()) if out[1].numel() else 0
 
 
-def raster_args(f9, size, K_cap, pc):
+def raster_args(f9, size, K_cap, pc, face_mask=None):
     """The arguments of B1 (rasterize_pairs), B2 (rasterize_tiles) and of
-    the fused rasterize_tiled for the tiled path of faces f9 (N, 9, F), as
-    ops.rasterizer._rasterize_tiled builds them."""
+    the fused rasterize_tiled for the tiled path of faces f9 (N, 9, F)
+    (and a face mask, if given), as ops.rasterizer._rasterize_tiled builds
+    them."""
     H, W = size
     TH, TW = rast._tiles(H, W, TILE)
-    pface, starts, counts, big = rast._pairlist_pairs(f9, size, TILE)
+    pface, starts, counts, big = rast._pairlist_pairs(f9, size, TILE,
+                                                      face_mask=face_mask)
     valid, faces = rast._big_face_lists(f9, big, H, W, TILE)
     N, T = f9.shape[0], TH * TW
     # B1 and B2 alone read face rows gathered by id, camera-major.
@@ -1395,20 +1421,24 @@ TRAIN_PHASES = ("decision", "capture", "depth_step", "scone_step",
                 "depth_replay", "scone_replay", "remap", "done")
 
 
-def phase_train():
+def phase_train(frames_to):
     """The online trainer as users run it: run_training with the default
     training config at full widths on the 59,392-face scene (random weights
     from its torch_seed). Epoch 0: TRAIN_POSES poses, a remap at pose
     TRAIN_REMAP, memory trajectory slot 0. Then a second run resumes from
     epoch 0's checkpoint and trains epoch 1 in slot 1, with depth replay
     (n_memory_loops steps of n_memory_samples frames) and SCONE replay
-    (n_memory_scene_loops steps) from slot 0 after every pose. Launch
+    (n_memory_scene_loops steps) from slot 0 after every pose. Every epoch
+    validates on the scene (VAL_POSES poses, frozen weights). Launch
     counts are set to 0 before the first run and read after the second.
     Fails unless the losses are finite with a positive depth loss, the
     three networks moved, both B3 kernels and rasterize_tiled launched,
     the B3 backward once per SCONE step, each trajectory saved 1 + n_alpha
-    + poses x interpolation steps frames, and the checkpoint reloads. Then
-    one depth step (B 1) and one SCONE step on the card against the CPU."""
+    + poses x interpolation steps frames, the checkpoint reloads, and the
+    coverage_validated_ checkpoint holds a validation coverage in [0, 1].
+    Then one depth step (B 1) and one SCONE step on the card against the
+    CPU. The memory's two frames/ directories are copied under
+    ``frames_to`` for the depth pretrainer."""
     dev = resolve_device("cuda")
     gc.collect()
     torch.cuda.empty_cache()
@@ -1417,6 +1447,9 @@ def phase_train():
         root = scene_scale_suite(os.path.join(tmp, "scenes"), SCENE_LEVELS)
         wdir, mroot = os.path.join(tmp, "weights"), os.path.join(tmp, "mem")
         p0, p1 = train_params(root, 1), train_params(root, 2)
+        for p in (p0, p1):
+            p.update(dict(val_scenes=["synth_00"], validate_every_n_epochs=1,
+                          n_val_poses=VAL_POSES))
         print(f"[train] default training config: image {p0.image_height}x"
               f"{p0.image_width}, ManyDepth {p0.n_depth} planes, proxies "
               f"{p0.n_proxy_points}, seq_len {p0.seq_len}, interpolation "
@@ -1460,6 +1493,18 @@ def phase_train():
         depth_ref = create_macarons_model(p1, dev)
         load_macarons(os.path.join(wdir, "epoch_0_smoke" if peak
                                    else "unvalidated_smoke"), depth_ref)
+        val_path = os.path.join(wdir, "coverage_validated_smoke")
+        val_meta = (load_macarons(val_path, create_macarons_model(p1, dev))
+                    if os.path.exists(val_path + ".pt") else {})
+        val_frames = os.path.join(mroot, "synth_00", "macarons_memory_val",
+                                  "training", "0", "frames")
+        n_val_frames = (len(os.listdir(val_frames))
+                        if os.path.isdir(val_frames) else 0)
+        frames_dirs = []
+        for t in (0, 1):
+            frames_dirs.append(os.path.join(frames_to, f"frames_{t}"))
+            shutil.copytree(os.path.join(mem, str(t), "frames"),
+                            frames_dirs[-1])
 
     for e in (0, 1):
         for i in range(TRAIN_POSES):
@@ -1512,6 +1557,18 @@ def phase_train():
              f"{same})")
     print(f"[train] the resume point reloads (epoch {meta['epoch']}); loss "
           f"peak rollback of the depth network: {peak}", flush=True)
+    val_cov = val_meta.get("val_coverage")
+    if val_cov is None or not 0.0 <= val_cov <= 1.0:
+        fail(f"no coverage_validated_ checkpoint with a validation coverage "
+             f"in [0, 1]: {val_meta}")
+    want_val = 1 + p0.n_alpha + VAL_POSES * p0.n_interpolation_steps
+    if n_val_frames != want_val:
+        fail(f"the validation trajectory saved {n_val_frames} frames, not "
+             f"{want_val}")
+    print(f"[train] validation ({VAL_POSES} poses on synth_00 each epoch, "
+          f"{n_val_frames} frames in its memory): coverage_validated_smoke "
+          f"written at epoch {val_meta['epoch']}, val_coverage "
+          f"{val_cov:.6f}", flush=True)
 
     gen = make_generator(torch.device("cuda"), SEED + 3)
     # The last online depth step's own supervision batch, its first target.
@@ -1549,7 +1606,7 @@ def phase_train():
           f"step {s_ms[0]:.2f} ms ({s_ms[1]:.2f}-{s_ms[2]:.2f}), peak "
           f"{s_peak:.2f} GiB", flush=True)
     return dict(counts=counts, n_cams=int(sargs[5].R.shape[0]),
-                seq_len=p1.seq_len)
+                seq_len=p1.seq_len, frames_dirs=frames_dirs, model=model)
 
 
 def _to(x, dev, dtype=None):
@@ -2383,6 +2440,405 @@ def pretrain_sh_rows(gen, counts, worst, worst_backward):
     return [fwd, bwd]
 
 
+# ---------------------------------------------------------------------------
+# Scene data (settings.json, occupied poses) and depth pretraining
+# ---------------------------------------------------------------------------
+
+# compute_occupied_poses' threshold and the CLI's image size.
+OCC_THRESHOLD = 1e-3
+OCC_SIZE = (64, 64)
+# The closed cube (12 faces) subdivided 5 times: 12,288 faces, above the
+# 4096 at which capture takes the tiled path.
+CUBE_LEVELS = 5
+# The JAX package's occupied-pose test lattice (tests/test_scene_data_gen.py).
+CUBE_LATTICE = (np.array([-3.0, -3, -3]), np.array([3.0, 3, 3]), 3, 3, 3, 3,
+                8)
+CUBE_CORNERS = [(i, j, k) for i in (0, 2) for j in (0, 2) for k in (0, 2)]
+
+
+def closed_cube(half=1.0) -> Mesh:
+    """A cube of 8 vertices and 12 outward faces (tests/test_rasterizer.py's
+    cube)."""
+    v = np.array([[x, y, z] for x in (-half, half) for y in (-half, half)
+                  for z in (-half, half)], np.float32)
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6),
+             (0, 2, 6, 4), (1, 5, 7, 3)]
+    f = [t for a, b, c, d in quads for t in ((a, b, c), (a, c, d))]
+    return Mesh(v, np.array(f, np.int32))
+
+
+class tiled_on_cpu:
+    """While the block runs, ops.rasterizer.rasterize (and so render_mesh)
+    takes the tiled path on any device: on CPU tensors its plain version,
+    which the card's kernel matches bit for bit, where "auto" would take the
+    binned path (which truncates other faces of an overflowing tile)."""
+
+    def __enter__(self):
+        self.own = rast.rasterize
+        rast.rasterize = functools.partial(self.own, method="tiled")
+
+    def __exit__(self, *exc):
+        rast.rasterize = self.own
+
+
+def pairs_over_cap(verts, faces, pose, face_mask=None):
+    """The (tile, face) pairs K_cap truncation drops from a pose's render at
+    OCC_SIZE (the tiled path keeps each tile's K_cap smallest face ids)."""
+    f9 = rast.project_fv_batch(verts, faces,
+                               pose_camera(pose, device=verts.device))
+    counts = rast._pairlist_pairs(f9, OCC_SIZE, TILE, face_mask=face_mask)[2]
+    return int((counts.long() - rast.k_cap(1024, f9.shape[2]))
+               .clamp(min=0).sum())
+
+
+def masked_faces_win(verts, faces, poses):
+    """Pixels that a face culled by front_face_mask wins in the culled
+    render of each pose, on the card (the 64-bit atomicMin merge must never
+    let one through): their total."""
+    bad = 0
+    for pose in poses:
+        cam = pose_camera(pose, device=verts.device)
+        mask = rast.front_face_mask(verts, faces, cam)
+        fid = rast.rasterize(verts, faces, cam, OCC_SIZE,
+                             perspective_correct=False,
+                             face_mask=mask).pix_to_face
+        bad += int((~mask[fid.clamp(min=0)] & (fid >= 0)).sum())
+    return bad
+
+
+def hold_occupied(label, card, cpu):
+    """The card's occupied poses against the CPU's tiled plain path: the
+    same positions, resampled poses and flags. Prints the smallest margin
+    |diff - threshold| and the largest card-vs-CPU |diff|."""
+    if not (np.array_equal(card["X_idx"], cpu["X_idx"])
+            and np.array_equal(card["poses"], cpu["poses"])):
+        fail(f"[scene_data] {label}: the card and the CPU took other poses")
+    margin = float(np.abs(card["diff"] - OCC_THRESHOLD).min())
+    gap = float(np.abs(card["diff"] - cpu["diff"]).max())
+    differ = np.flatnonzero(card["occupied"] != cpu["occupied"])
+    print(f"[scene_data] {label}: {len(card['X_idx'])} positions, "
+          f"{int(card['occupied'].sum())} occupied; card against CPU (tiled "
+          f"plain path): flags {'identical' if not len(differ) else differ}, "
+          f"poses identical, max |diff card - diff CPU| {gap:.3e}, smallest "
+          f"margin |diff - {OCC_THRESHOLD}| {margin:.3e}", flush=True)
+    if len(differ):
+        fail(f"[scene_data] {label}: the card's occupied flags differ from "
+             f"the CPU's at {card['X_idx'][differ].tolist()}")
+    return margin, gap
+
+
+def occupied_raster_row(verts, faces, pose, launches):
+    """B1 + B2 (the fused rasterize_tiled) at the occupied-pose shape: one
+    camera at OCC_SIZE with its front-face mask, held against its plain
+    version, then timed."""
+    cam = pose_camera(pose, device=verts.device)
+    f9 = rast.project_fv_batch(verts, faces, cam)
+    mask = rast.front_face_mask(verts, faces, cam)
+    K_cap = rast.k_cap(1024, f9.shape[2])
+    args = raster_args(f9, OCC_SIZE, K_cap, False, face_mask=mask)[2]
+    err, cover = hold_raster("rasterize_tiled", tr.rasterize_tiled,
+                             tr.rasterize_tiled_plain, args)
+    n_p, _, n_l, _ = tr.item_table(args[2], args[3], args[1].shape[0],
+                                   K_cap, args[5], args[6])
+    n_pairs, n_lanes = int(n_p.sum()), int(n_l.sum())
+    counts = args[3].long()
+    R, P = counts.shape[0], TILE * TILE
+    plain_ms = median_ms(lambda: tr.rasterize_tiled_plain(*args), reps=3)[0]
+    dev_ms, per = profiled_device_ms(lambda: tr.rasterize_tiled(*args),
+                                     "raster_tiled_kernel")
+    path_ms = median_ms(lambda: rast._rasterize_tiled(
+        f9, OCC_SIZE, TILE, 1024, False, face_mask=mask))
+    t_ops = tr.tiled_flops(n_pairs, n_lanes, R, P) / PEAK_FP32_FLOPS * 1e3
+    t_bytes = tr.tiled_bytes(n_pairs, n_lanes, R, P) / PEAK_BYTES_PER_S * 1e3
+    kernel_ms = sum(v for k, v in per.items() if "raster_tiled_kernel" in k)
+    print(f"[kernel] rasterize_tiled, occupied poses (pose {np.round(pose, 3)}"
+          f", 1 camera x {OCC_SIZE[0]}x{OCC_SIZE[1]}, {int(mask.sum())} of "
+          f"{f9.shape[2]} faces kept by the face mask): {R} tiles, "
+          f"{n_pairs} pairs and {n_lanes} big-face lanes tested, "
+          f"{int((counts > K_cap).sum())} tiles over K_cap {K_cap}; ids "
+          f"identical to the plain version, max |kernel - plain| {err:.3e}, "
+          f"covered {cover:.3f}; {dev_ms * 1e3:.2f} us of device time per "
+          f"call [kernel {kernel_ms * 1e3:.2f}] (torch.profiler), plain "
+          f"{plain_ms:.3f} ms, bound {max(t_ops, t_bytes) * 1e3:.2f} us; the "
+          f"whole tiled path (feeder and launch) {path_ms[0]:.3f} ms",
+          flush=True)
+    return {"name": f"rasterize_tiled (occupied poses, 1 camera x 64x64, "
+                    f"face mask, {f9.shape[2]:,} faces)",
+            "route": "cuda",
+            "source": "macarons_tpu_torch/csrc/tile_raster.cu",
+            "replaces": "macarons_tpu/ops/pallas/tile_raster.py:264",
+            "replaces_also": "macarons_tpu/ops/pallas/tile_raster.py:320",
+            "launches": launches, "max_abs_err": err, "ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "shape": [R, P, n_pairs + n_lanes],
+            "kernel_ms": kernel_ms, "path_ms": path_ms[0]}
+
+
+def phase_scene_data():
+    """Scene data as users generate it: the port's generate_scene_data CLI
+    (main) on the card over a copy of synth_00 subdivided 4 times (59,392
+    faces; its settings.json's pose lattice, which the CLI keeps), then
+    compute_occupied_poses on the closed cube subdivided to 12,288 faces
+    over the JAX package's 3x3x3 test lattice. Launch counts are set to 0
+    before each run and read after it: rasterize_tiled twice per
+    position, the two-pass composition never. Each run is held against the
+    CPU's tiled plain path (the same poses and flags), no culled face wins
+    a pixel of a culled render, the cube's centre is occupied and every
+    corner whose render loses no pair to K_cap truncation is free. Returns
+    the kernel row of rasterize_tiled at the occupied-pose shape."""
+    dev = resolve_device("cuda")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scene_data_",
+                                     dir=_work_dir()) as tmp:
+        root = scene_scale_suite(os.path.join(tmp, "scenes"), SCENE_LEVELS)
+        scene = os.path.join(root, "synth_00")
+        mesh = load_obj(os.path.join(scene, "mesh.obj"))
+        st = SceneSettings.from_json(os.path.join(scene, "settings.json"))
+        ps = PoseSpace(st.pose_x_min, st.pose_x_max, st.pose_l, st.pose_w,
+                       st.pose_h, st.pose_n_elev, st.pose_n_azim)
+        own = compute_scene_settings(mesh.verts)["camera"]
+        print(f"[scene_data] synth_00 subdivided {SCENE_LEVELS} times: "
+              f"{len(mesh.faces)} faces; its settings.json lattice "
+              f"{st.pose_l}x{st.pose_w}x{st.pose_h} = {ps.dims[:3].prod()} "
+              f"positions (compute_scene_settings at pose_step 1 would give "
+              f"{own['pose_l']}x{own['pose_w']}x{own['pose_h']})", flush=True)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = generate_scene_data.main(["--data_path", root,
+                                        "--device", "cuda"])["synth_00"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        with np.load(os.path.join(scene, "occupied_pose.npz")) as f:
+            written = dict(f)
+    n = len(out["X_idx"])
+    if not (set(written) == {"X_idx", "occupied"}
+            and np.array_equal(written["X_idx"], out["X_idx"])
+            and np.array_equal(written["occupied"], out["occupied"])):
+        fail("[scene_data] occupied_pose.npz does not hold the run's result")
+    if counts["rasterize_tiled"] != 2 * n or counts["rasterize_pairs"] \
+            or counts["rasterize_tiles"]:
+        fail(f"[scene_data] {n} positions launched {counts}: not 2 "
+             f"rasterize_tiled per position and no B1 or B2 alone")
+    verts = torch.as_tensor(mesh.verts, device=dev)
+    faces = torch.as_tensor(mesh.faces, device=dev).long()
+    # Device time from a short trace: the 2x2x2 lattice over the same box.
+    few = PoseSpace(st.pose_x_min, st.pose_x_max, 2, 2, 2, st.pose_n_elev,
+                    st.pose_n_azim)
+    dev_ms, per = device_breakdown(
+        lambda: compute_occupied_poses(mesh, few, device=dev), iters=1)
+    dev_ms, tiled_dev = dev_ms / 8, sum(v for k, v in per.items()
+                                        if "raster" in k) / 8
+    print(f"[scene_data] generate_scene_data (card): {wall:.2f} s for {n} "
+          f"positions, {wall / n * 1e3:.2f} ms per position; device time "
+          f"per position {dev_ms:.3f} ms (torch.profiler over 8 positions "
+          f"of a 2x2x2 lattice; the tile raster kernels {tiled_dev:.3f} "
+          f"ms), so the host holds ~{max(0.0, wall / n * 1e3 - dev_ms):.2f} "
+          f"ms of it; launches {counts}", flush=True)
+    t1 = time.perf_counter()
+    with tiled_on_cpu():
+        cpu = compute_occupied_poses(mesh, ps, device="cpu")
+    print(f"[scene_data] the CPU's run: {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    margins = [hold_occupied("synth_00", out, cpu)]
+
+    cube = subdivide(closed_cube(), CUBE_LEVELS)
+    cps = PoseSpace(*CUBE_LATTICE)
+    torch.cuda.synchronize()
+    reset_counts()
+    card = compute_occupied_poses(cube, cps, device=dev)
+    ccounts = read_counts()
+    if ccounts["rasterize_tiled"] != 2 * 27 or ccounts["rasterize_pairs"] \
+            or ccounts["rasterize_tiles"]:
+        fail(f"[scene_data] the cube's 27 positions launched {ccounts}")
+    with tiled_on_cpu():
+        cpu = compute_occupied_poses(cube, cps, device="cpu")
+    margins.append(hold_occupied(f"cube ({len(cube.faces)} faces)", card,
+                                 cpu))
+    cverts = torch.as_tensor(cube.verts, device=dev)
+    cfaces = torch.as_tensor(cube.faces, device=dev).long()
+    flags = {tuple(x): (bool(o), float(d), p) for x, o, d, p in
+             zip(card["X_idx"], card["occupied"], card["diff"],
+                 card["poses"])}
+    corners = {c: (flags[c][0], flags[c][1],
+                   pairs_over_cap(cverts, cfaces, flags[c][2]))
+               for c in CUBE_CORNERS}
+    print(f"[scene_data] cube: centre occupied {flags[(1, 1, 1)][0]}; "
+          f"corners (occupied, diff, pairs dropped by K_cap in the plain "
+          f"render): {corners}", flush=True)
+    if not flags[(1, 1, 1)][0]:
+        fail("[scene_data] the cube's centre is not occupied")
+    wrong = [c for c, (occ, _, over) in corners.items() if occ and not over]
+    if wrong:
+        fail(f"[scene_data] cube corners {wrong} are occupied with no pair "
+             f"lost to K_cap truncation")
+    bad = (masked_faces_win(verts, faces, out["poses"])
+           + masked_faces_win(cverts, cfaces, card["poses"]))
+    if bad:
+        fail(f"[scene_data] {bad} pixels won by faces the mask culls")
+    row = occupied_raster_row(verts, faces,
+                              out["poses"][int(np.argmax(out["diff"]))],
+                              counts["rasterize_tiled"])
+    print(f"[scene_data] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return row
+
+
+def pretrain_depth_params(**extra):
+    """The depth pretrainer on the default training config's depth widths
+    (256x456, 96 planes, augmentation on), alphas [-2, -1], batch 4, one
+    epoch."""
+    params = load_params(os.path.join(
+        REPO_DIR, "configs/macarons/macarons_default_training_config.json"))
+    params.update(dict(dict(alphas=[-2, -1], n_alpha=2, batch_size=4,
+                            epochs=1, start_from_scratch=True,
+                            depth_model_name="smoke_depth"), **extra))
+    return params
+
+
+def disparities(model, inputs):
+    with torch.no_grad():
+        return model.eval()(*inputs)[1:]
+
+
+def depth_step_ms(model, params, batch, alpha):
+    """One pretrainer step (depth_loss in train mode, backward, AdamW) on
+    a copy of ``model``: (median ms of 5 between CUDA events, peak GiB)."""
+    m = copy.deepcopy(model).train()
+    opt = torch.optim.AdamW(m.parameters(), lr=1e-4, weight_decay=0.01)
+    cfg = pretrain_depth.depth_cfg(params)
+    gen = make_generator(torch.device("cuda"), SEED)
+
+    def step():
+        loss = depth_loss(m, cfg, batch, alpha, gen=gen)[0]
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = median_ms(step)
+    return ms, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_depth_pretrain(frames_dirs, scone):
+    """The depth pretrainer as users run it, on the card, over the frames
+    the train phase's memory holds: one epoch (learn_pose false), a
+    resumed second, and one epoch with learn_pose. Fails unless every loss
+    is finite and each checkpoint is written and gives the trained
+    network's disparities reloaded both through
+    utils.generate_macarons_model (-d) and create_macarons_model. Then:
+    one learn_pose step (B 1) held against the CPU by hold_depth_step;
+    bfloat16 convolutions at B 1 and B 4 against float32 (the largest
+    disparity gap and both times); the batched stem against the split
+    calls in eval mode, within 1e-6; the step times at B 4 with and
+    without learn_pose and their peak memory."""
+    dev = resolve_device("cuda")
+    t_phase = time.perf_counter()
+    p1 = pretrain_depth_params()
+    p2 = pretrain_depth_params(epochs=2, start_from_scratch=False)
+    plp = pretrain_depth_params(learn_pose=True,
+                                depth_model_name="smoke_depth_pose")
+    ds = datasets.RGBDataset(frames_dirs, p1.alphas)
+    print(f"[depth_pretrain] {len(ds)} items in {len(frames_dirs)} "
+          f"trajectories; {p1.image_height}x{p1.image_width}, {p1.n_depth} "
+          f"planes, alphas {p1.alphas}, batch {p1.batch_size}, augmentation "
+          f"{p1.data_augmentation}", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_depth_",
+                                     dir=_work_dir()) as tmp:
+        wdir = os.path.join(tmp, "weights")
+        runs = {}
+        for label, params in (("epoch 0", p1), ("resumed epoch 1", p2),
+                              ("learn_pose epoch 0", plp)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model, losses = pretrain_depth.run_training(
+                params, frames_dirs, wdir, device=dev, verbose=False)
+            torch.cuda.synchronize()
+            runs[label] = (model, losses)
+            print(f"[depth_pretrain] {label}: losses {losses}, "
+                  f"{time.perf_counter() - t0:.2f} s, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+                  flush=True)
+            if not all(np.isfinite(v) and v > 0 for v in losses):
+                fail(f"[depth_pretrain] {label}: losses {losses}")
+        if (len(runs["epoch 0"][1]) != 1 or len(runs["resumed epoch 1"][1])
+                != 2 or runs["resumed epoch 1"][1][0]
+                != runs["epoch 0"][1][0]):
+            fail("[depth_pretrain] the resumed run lost epoch 0's loss")
+        items = [ds[i] for i in range(4)]
+        batch, alpha = pretrain_depth.load_frame_batch(items, 2, dev)
+        inputs = many_depth_inputs(pretrain_depth.depth_cfg(p1), batch, alpha)
+        for params, label in ((p2, "resumed epoch 1"),
+                              (plp, "learn_pose epoch 0")):
+            name = params.depth_model_name
+            want = disparities(runs[label][0], inputs)
+            for flavour in ("unvalidated", "best_unval"):
+                path = os.path.join(wdir, f"{flavour}_{name}")
+                if not all(os.path.exists(path + e) for e in (".pt", ".json")):
+                    fail(f"[depth_pretrain] {path}.pt/.json not written")
+                a = generate_macarons_model.assemble(params, depth_ckpt=path,
+                                                     device=dev).depth
+                b = create_macarons_model(params, dev).depth
+                load_checkpoint(path, b)
+                da, db = disparities(a, inputs), disparities(b, inputs)
+                if not all(torch.equal(x, y) for x, y in zip(da, db)):
+                    fail(f"[depth_pretrain] {path} reloads to other "
+                         f"disparities through its two routes")
+                if flavour == "unvalidated" and not all(
+                        torch.equal(x, y) for x, y in zip(da, want)):
+                    fail(f"[depth_pretrain] {path} does not hold the trained "
+                         f"network")
+        print("[depth_pretrain] the checkpoints (unvalidated_, best_unval_; "
+              "without and with learn_pose) reload through "
+              "generate_macarons_model -d and create_macarons_model to the "
+              "trained disparities", flush=True)
+
+    lp_model = runs["learn_pose epoch 0"][0]
+    t0 = time.perf_counter()
+    herr = hold_depth_step(plp, MacaronsModel(scone.occ, scone.vis, lp_model),
+                           {k: v[:1] for k, v in batch.items()},
+                           {k: v[:1] for k, v in alpha.items()})
+    print(f"[depth_pretrain] learn_pose step B 1, card against CPU: {herr} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    f32 = runs["resumed epoch 1"][0].eval()
+    bf16 = create_many_depth(pretrain_depth_params(
+        depth_compute_dtype="bfloat16"), dev)
+    bf16.load_state_dict(f32.state_dict())
+    for B in (1, 4):
+        sub = tuple(t[:B] for t in inputs)
+        gap = max(float((x - y).abs().max()) for x, y in
+                  zip(disparities(bf16, sub), disparities(f32, sub)))
+        t32 = median_ms(lambda: disparities(f32, sub))
+        t16 = median_ms(lambda: disparities(bf16, sub))
+        print(f"[depth_pretrain] bfloat16 forward B {B}: max |disp bf16 - "
+              f"disp f32| {gap:.3e}; {t16[0]:.2f} ms against float32's "
+              f"{t32[0]:.2f} ms (median of 5 between CUDA events)",
+              flush=True)
+        if not np.isfinite(gap):
+            fail("[depth_pretrain] the bfloat16 disparities are not finite")
+    batched = copy.deepcopy(f32)
+    batched.depth_decoder.batched_stem = True
+    gap = max(float((x - y).abs().max()) for x, y in
+              zip(disparities(batched, inputs), disparities(f32, inputs)))
+    print(f"[depth_pretrain] batched stem at B 4 against the split calls: "
+          f"max |disp| gap {gap:.3e}", flush=True)
+    if not gap <= 1e-6:
+        fail(f"[depth_pretrain] the batched stem differs by {gap}")
+    for label, model, params in (("without learn_pose", f32, p1),
+                                 ("with learn_pose", lp_model, plp)):
+        ms, peak = depth_step_ms(model, params, batch, alpha)
+        print(f"[depth_pretrain] step at B 4 {label}: {ms[0]:.2f} ms "
+              f"({ms[1]:.2f}-{ms[2]:.2f}, median of 5 between CUDA events), "
+              f"peak {peak:.2f} GiB", flush=True)
+    print(f"[depth_pretrain] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -2413,11 +2869,18 @@ def main():
     n_cams, seq_len = shape.n_interpolation_steps, shape.seq_len
     backward = backward_row(worst_backward, (n_cams, 1, seq_len),
                             (1, n_cams, seq_len))
-    train = phase_train()
-    if [train["n_cams"], 1, train["seq_len"]] != backward["shape"]:
-        fail(f"the SCONE step ran B3 at {train}, not {backward['shape']}")
-    backward["launches"] = train["counts"]["sh_visibility_backward"]
-    rows.append(backward)
+    keep = tempfile.mkdtemp(prefix="chip_smoke_frames_", dir=_work_dir())
+    try:
+        train = phase_train(keep)
+        if [train["n_cams"], 1, train["seq_len"]] != backward["shape"]:
+            fail(f"the SCONE step ran B3 at {train}, not "
+                 f"{backward['shape']}")
+        backward["launches"] = train["counts"]["sh_visibility_backward"]
+        rows.append(backward)
+        phase_depth_pretrain(train["frames_dirs"], train.pop("model"))
+    finally:
+        shutil.rmtree(keep)
+    rows.append(phase_scene_data())
     lane = phase_scone_pretrain()
     rows += lane["rows"]
     rows += pretrain_sh_rows(gen, lane["counts"], worst, worst_backward)

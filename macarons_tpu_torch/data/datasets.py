@@ -1,5 +1,5 @@
 """Dataset walkers and GT artifact loaders, on the host in numpy (the
-port's copy of macarons_tpu/data/datasets.py, without ``RGBDataset``).
+port's copy of macarons_tpu/data/datasets.py).
 
 ShapeNet split JSONs -> model paths; per-mesh GT tensors in
 ``<model_dir>/tensors/`` (this package's and the JAX package's ``.npz``, or
@@ -90,6 +90,41 @@ def iterate_batches(paths: Sequence[str], batch_size: int, *, shuffle: bool,
         yield [paths[i] for i in idx[b * batch_size : (b + 1) * batch_size]]
     if not drop_last and len(idx) % batch_size:
         yield [paths[i] for i in idx[n_full * batch_size :]]
+
+
+class RGBDataset:
+    """Frames of saved trajectories with their alpha neighbours, for the
+    depth pretrainer: item i is a frame ``<dir>/<n>.npz`` and the frames at
+    ``n + alpha`` for each alpha. A frame is an item only if every
+    neighbour exists in its directory (so none crosses a trajectory's
+    start or end); a frame listed in ``frames_to_remove`` is no item, but
+    may still serve as another's neighbour. Directories in the given
+    order, frames in ascending number."""
+
+    def __init__(self, frames_dirs: Sequence[str],
+                 alphas: Sequence[int] = (-2, -1),
+                 frames_to_remove: Sequence[str] = ()):
+        self.alphas = list(alphas)
+        self.items = []
+        removed = set(frames_to_remove)
+        for d in frames_dirs:
+            nums = sorted(int(f.split(".")[0]) for f in os.listdir(d)
+                          if f.split(".")[0].isdigit())
+            valid = set(nums)
+            for n in nums:
+                if os.path.join(d, f"{n}.npz") in removed:
+                    continue
+                if all((n + a) in valid for a in self.alphas):
+                    self.items.append((d, n))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        d, n = self.items[i]
+        return {"frame": os.path.join(d, f"{n}.npz"),
+                "alpha_frames": [os.path.join(d, f"{n + a}.npz")
+                                 for a in self.alphas]}
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,12 @@
-"""Scene dataset and settings (port of macarons_tpu/data/scenes.py).
+"""Scene dataset and settings, and the scene-data generator (port of
+macarons_tpu/data/scenes.py).
 
 Per-scene directory: ``<scene>/<name>.obj`` + ``settings.json`` (box, grid
 dims, camera pose lattice, start poses, contrast) + optionally
-``occupied_pose.npz``.
+``occupied_pose.npz``. ``compute_scene_settings`` sizes the settings from
+the mesh's box; ``compute_occupied_poses`` marks the lattice positions
+inside geometry by rendering each twice, plainly and with backface
+culling, on the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -13,6 +17,14 @@ from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
+import torch
+
+from ..ops.geometry import FoVCamera
+from ..ops.projection import points_in_fov_mask
+from ..ops.rasterizer import PointLights, front_face_mask, render_mesh
+from ..scene.camera import get_camera_RT
+from ..utils.device import resolve_device
+from .mesh_io import Mesh
 
 
 @dataclass
@@ -92,3 +104,89 @@ def occupied_pose_grid(occupied_pose: dict, pose_l: int, pose_w: int,
         if 0 <= x < pose_l and 0 <= y < pose_w and 0 <= z < pose_h:
             grid[x, y, z] = o
     return grid
+
+
+def compute_scene_settings(verts: np.ndarray, cell_size: float = 1.0,
+                           pose_step: float = 1.0, n_elev: int = 5,
+                           n_azim: int = 8) -> dict:
+    """settings.json for a mesh: its box widened by 1 % (of each bound),
+    grid dims of ``cell_size`` cells (at least 1) and pose-lattice dims of
+    ``pose_step`` steps (at least 2) over it, no start positions."""
+    mn = verts.min(0) * 1.01
+    mx = verts.max(0) * 1.01
+    extent = mx - mn
+    grid_dims = np.maximum(np.ceil(extent / cell_size).astype(int), 1)
+    pose_dims = np.maximum(np.ceil(extent / pose_step).astype(int), 2)
+    return {
+        "scene": {"x_min": mn.tolist(), "x_max": mx.tolist(),
+                  "grid_l": int(grid_dims[0]), "grid_w": int(grid_dims[1]),
+                  "grid_h": int(grid_dims[2])},
+        "camera": {"x_min": mn.tolist(), "x_max": mx.tolist(),
+                   "pose_l": int(pose_dims[0]), "pose_w": int(pose_dims[1]),
+                   "pose_h": int(pose_dims[2]), "pose_n_elev": n_elev,
+                   "pose_n_azim": n_azim, "start_positions": []},
+        "contrast_factor": 1.0,
+    }
+
+
+def pose_camera(pose, zfar: float = 100.0, device=None) -> FoVCamera:
+    """The FoV camera at a lattice pose [x, y, z, elev_deg, azim_deg]."""
+    p = torch.as_tensor(np.asarray(pose, np.float32), device=device)
+    return FoVCamera.create(*get_camera_RT(p[:3], p[3:]), zfar=zfar)
+
+
+def compute_occupied_poses(mesh: Mesh, pose_space, image_size=(64, 64),
+                           threshold: float = 1e-3, zfar: float = 100.0,
+                           rs: Optional[np.random.Generator] = None,
+                           device="cuda") -> dict:
+    """Mark the lattice positions inside geometry, on ``device`` ("cuda"
+    unless the caller asks for the CPU).
+
+    Each position (i, j, k) looks along the lattice's first direction; if
+    no vertex lies in its view, the direction is drawn again from ``rs``
+    (at most 32 times). The view is rendered with ambient light over a
+    black background twice, plainly and with backface culling
+    (``front_face_mask``): a camera inside a closed mesh sees only back
+    faces, so culling changes its image everywhere, and the position is
+    occupied when the mean absolute difference exceeds ``threshold``.
+    Returns {"X_idx": (N, 3) int64, "occupied": (N,) bool} in (i, j, k)
+    order, and each position's pose "poses" (N, 5) float32 and difference
+    "diff" (N,)."""
+    dev = resolve_device(device)
+    rs = rs or np.random.default_rng(0)
+    verts = torch.as_tensor(mesh.verts, dtype=torch.float32, device=dev)
+    faces = torch.as_tensor(np.asarray(mesh.faces, np.int64), device=dev)
+    colors = (None if mesh.vert_colors is None else torch.as_tensor(
+        mesh.vert_colors, dtype=torch.float32, device=dev))
+    lights = PointLights.create(torch.zeros((1, 3), device=dev), ambient=1.0,
+                                diffuse=0.0, specular=0.0)
+    H, W = image_size
+    dims = pose_space.dims
+    X_idx, occupied, poses, diffs = [], [], [], []
+    for i in range(dims[0]):
+        for j in range(dims[1]):
+            for k in range(dims[2]):
+                pose = pose_space.pose_from_idx(np.array([i, j, k, 0, 0]))
+                cam = pose_camera(pose, zfar, dev)
+                for _ in range(32):
+                    if bool(points_in_fov_mask(verts[None], cam, H, W,
+                                               fov_range=5 * zfar).any()):
+                        break
+                    pose[3] = -90.0 + 180.0 * (
+                        1 + rs.integers(0, dims[3])) / (dims[3] + 1)
+                    pose[4] = 360.0 * rs.integers(0, dims[4]) / dims[4]
+                    cam = pose_camera(pose, zfar, dev)
+                normal, _ = render_mesh(verts, faces, cam, image_size, lights,
+                                        vert_colors=colors, background=0.0)
+                culled, _ = render_mesh(
+                    verts, faces, cam, image_size, lights, vert_colors=colors,
+                    background=0.0,
+                    face_mask=front_face_mask(verts, faces, cam))
+                diff = float(torch.mean(torch.abs(normal - culled)))
+                X_idx.append([i, j, k])
+                occupied.append(diff > threshold)
+                poses.append(pose)
+                diffs.append(diff)
+    return {"X_idx": np.asarray(X_idx, np.int64),
+            "occupied": np.asarray(occupied, bool),
+            "poses": np.stack(poses), "diff": np.asarray(diffs)}

@@ -30,6 +30,22 @@ class MacaronsModel(NamedTuple):
     depth: Optional[ManyDepth] = None  # None under use_perfect_depth
 
 
+def create_many_depth(params: Params, device=None) -> ManyDepth:
+    """ManyDepth from the config, in eval mode on ``device``. Its
+    convolutions compute in ``depth_compute_dtype``: None, "none" and
+    "float32" mean float32, else the named torch type ("bfloat16")."""
+    dtype = params.get("depth_compute_dtype")
+    return ManyDepth(
+        input_height=params.get("image_height", 256),
+        input_width=params.get("image_width", 456),
+        d_min=params.get("znear", 0.5), d_max=params.get("zfar", 750.0),
+        n_depth=params.get("n_depth", 96),
+        pose_factor=params.get("pose_factor", 100.0),
+        learn_pose=params.get("learn_pose", False),
+        dtype=(None if dtype in (None, "none", "float32")
+               else getattr(torch, dtype))).to(device).eval()
+
+
 def create_macarons_model(params: Params, device=None) -> MacaronsModel:
     """Build the networks from the config, in eval mode on ``device`` with
     empty weights (see ``init_macarons_weights`` and
@@ -39,29 +55,18 @@ def create_macarons_model(params: Params, device=None) -> MacaronsModel:
                    n_scale=0 if params.get("no_local_features", False) else 3,
                    k_for_knn=params.get("k_for_knn", 16))
     vis = SconeVis()
-    depth = None
-    if not params.get("use_perfect_depth", False):
-        if params.get("depth_compute_dtype") not in (None, "none", "float32"):
-            raise NotImplementedError(
-                "ManyDepth runs in float32 only: depth_compute_dtype "
-                f"{params.get('depth_compute_dtype')!r} is not ported yet")
-        depth = ManyDepth(
-            input_height=params.get("image_height", 256),
-            input_width=params.get("image_width", 456),
-            d_min=params.get("znear", 0.5), d_max=params.get("zfar", 750.0),
-            n_depth=params.get("n_depth", 96),
-            pose_factor=params.get("pose_factor", 100.0),
-            learn_pose=params.get("learn_pose", False)).to(device).eval()
+    depth = (None if params.get("use_perfect_depth", False)
+             else create_many_depth(params, device))
     return MacaronsModel(occ.to(device).eval(), vis.to(device).eval(), depth)
 
 
 def init_depth_weights(module: nn.Module, gen: torch.Generator):
-    """Flax's default init: LeCun-normal conv kernels (a normal truncated at
-    two standard deviations, of variance 1 / fan_in) and zero biases;
-    BatchNorm weight 1, bias 0, running mean 0 and variance 1."""
+    """Flax's default init: LeCun-normal conv and dense kernels (a normal
+    truncated at two standard deviations, of variance 1 / fan_in) and zero
+    biases; BatchNorm weight 1, bias 0, running mean 0 and variance 1."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
                 fan_in = m.weight[0].numel()
                 std = math.sqrt(1.0 / fan_in) / .87962566103423978
                 nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std,

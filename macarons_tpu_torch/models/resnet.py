@@ -5,15 +5,39 @@ NCHW, PyTorch's layout; the submodules carry the names Flax gives their
 counterparts, so a Flax variables tree maps onto a ``state_dict`` by path
 (utils.convert.flax_to_torch). BatchNorm is Flax's (``FlaxBatchNorm2d``):
 eps 1e-5; in eval mode it normalises with the running statistics, in train
-mode with the batch's, and updates the running ones as Flax does. Converting
-a torchvision resnet18 checkpoint waits for the depth pretrainer.
+mode with the batch's, and updates the running ones as Flax does.
+
+``dtype`` (None or ``torch.bfloat16``) is the convolutions' compute type,
+as Flax's ``nn.Conv(dtype=...)``: a conv casts its input, weight and bias
+to it, and the parameters stay float32. BatchNorm always computes in its
+parameters' type, so a block's output is float32 whatever its convs ran in.
+``convert_torch_resnet18`` maps a torchvision resnet18 state dict onto these
+modules.
 """
 
 from __future__ import annotations
 
+from typing import Dict, Mapping, Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype`` if one is given, else in
+    its weight's type; its input is cast either way (a Flax conv without a
+    dtype promotes a bfloat16 input to its float32 kernel)."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None,
+                 **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype or self.weight.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
@@ -24,9 +48,12 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     them, and updates running = 0.9 running + 0.1 batch with that same
     biased variance. ``nn.BatchNorm2d`` would update the running variance
     with the unbiased one, so a converted checkpoint would train to other
-    statistics. Eval mode is ``nn.BatchNorm2d``'s."""
+    statistics. Eval mode is ``nn.BatchNorm2d``'s. The input is cast to the
+    parameters' type first: BatchNorm stays float32 under bfloat16 convs, as
+    in the JAX package."""
 
     def forward(self, x):
+        x = x.to(self.weight.dtype)
         if not self.training:
             return super().forward(x)
         mean = x.mean(dim=(0, 2, 3))
@@ -49,10 +76,10 @@ def batch_norm(features: int) -> FlaxBatchNorm2d:
 
 
 def conv3x3(in_features: int, features: int, strides: int = 1,
-            bias: bool = True) -> nn.Conv2d:
+            bias: bool = True, dtype: Optional[torch.dtype] = None) -> Conv2d:
     """3x3 conv with zero padding 1 (Flax ``padding=1``)."""
-    return nn.Conv2d(in_features, features, 3, stride=strides, padding=1,
-                     bias=bias)
+    return Conv2d(in_features, features, 3, stride=strides, padding=1,
+                  bias=bias, compute_dtype=dtype)
 
 
 class BasicBlock(nn.Module):
@@ -60,15 +87,18 @@ class BasicBlock(nn.Module):
     conv (no padding, as Flax's ``SAME`` gives for a 1x1 kernel) and a BN
     wherever the block changes the shape."""
 
-    def __init__(self, in_features: int, features: int, strides: int = 1):
+    def __init__(self, in_features: int, features: int, strides: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv1 = conv3x3(in_features, features, strides, bias=False)
+        self.conv1 = conv3x3(in_features, features, strides, bias=False,
+                             dtype=dtype)
         self.bn1 = batch_norm(features)
-        self.conv2 = conv3x3(features, features, bias=False)
+        self.conv2 = conv3x3(features, features, bias=False, dtype=dtype)
         self.bn2 = batch_norm(features)
         if strides != 1 or in_features != features:
-            self.downsample_conv = nn.Conv2d(in_features, features, 1,
-                                             stride=strides, bias=False)
+            self.downsample_conv = Conv2d(in_features, features, 1,
+                                          stride=strides, bias=False,
+                                          compute_dtype=dtype)
             self.downsample_bn = batch_norm(features)
         else:
             self.downsample_conv = None
@@ -84,10 +114,11 @@ class BasicBlock(nn.Module):
 class ResNetLayer(nn.Module):
     """A torchvision ``layerN``: two BasicBlocks, the first may downsample."""
 
-    def __init__(self, in_features: int, features: int, strides: int = 1):
+    def __init__(self, in_features: int, features: int, strides: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.block0 = BasicBlock(in_features, features, strides)
-        self.block1 = BasicBlock(features, features)
+        self.block0 = BasicBlock(in_features, features, strides, dtype)
+        self.block1 = BasicBlock(features, features, dtype=dtype)
 
     def forward(self, x):
         return self.block1(self.block0(x))
@@ -96,9 +127,10 @@ class ResNetLayer(nn.Module):
 class ResNet18Stem(nn.Module):
     """conv1 (7x7, stride 2) + bn1 + relu, before the max pool."""
 
-    def __init__(self):
+    def __init__(self, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False,
+                            compute_dtype=dtype)
         self.bn1 = batch_norm(64)
 
     def forward(self, x):
@@ -113,12 +145,53 @@ class FeatureExtractor(nn.Module):
     """conv1 .. layer1 of ResNet18: image (N, 3, H, W) -> 64 channels at a
     quarter of the resolution (and the stem's output at a half)."""
 
-    def __init__(self):
+    def __init__(self, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.stem = ResNet18Stem()
-        self.layer1 = ResNetLayer(64, 64)
+        self.stem = ResNet18Stem(dtype)
+        self.layer1 = ResNetLayer(64, 64, dtype=dtype)
 
     def forward(self, x, return_conv1: bool = False):
         conv1 = self.stem(x)
         y = self.layer1(maxpool_3x3_s2(conv1))
         return (y, conv1) if return_conv1 else y
+
+
+# ---------------------------------------------------------------------------
+# torchvision weights
+# ---------------------------------------------------------------------------
+
+_BN = ("weight", "bias", "running_mean", "running_var")
+
+
+def convert_torch_resnet18(state_dict: Mapping[str, torch.Tensor]
+                           ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A torchvision resnet18 state dict (tensors or numpy arrays) -> the
+    state dicts of ``ResNet18Stem`` (``"stem"``) and of the four
+    ``ResNetLayer`` s (``"layer1"`` .. ``"layer4"``), each ready for
+    ``load_state_dict``. Convolutions keep their OIHW layout; a BatchNorm
+    takes the weight, bias and running statistics, with its batch count at
+    0 as the JAX package's converter leaves Flax's."""
+    sd = {k: torch.as_tensor(v, dtype=torch.float32)
+          for k, v in state_dict.items()}
+
+    def bn(dst, src):
+        out = {f"{dst}.{k}": sd[f"{src}.{k}"] for k in _BN}
+        out[f"{dst}.num_batches_tracked"] = torch.tensor(0)
+        return out
+
+    def block(dst, src, has_down):
+        out = {f"{dst}.conv1.weight": sd[f"{src}.conv1.weight"],
+               f"{dst}.conv2.weight": sd[f"{src}.conv2.weight"],
+               **bn(f"{dst}.bn1", f"{src}.bn1"),
+               **bn(f"{dst}.bn2", f"{src}.bn2")}
+        if has_down:
+            out[f"{dst}.downsample_conv.weight"] = \
+                sd[f"{src}.downsample.0.weight"]
+            out.update(bn(f"{dst}.downsample_bn", f"{src}.downsample.1"))
+        return out
+
+    out = {"stem": {"conv1.weight": sd["conv1.weight"], **bn("bn1", "bn1")}}
+    for i in range(1, 5):
+        out[f"layer{i}"] = {**block("block0", f"layer{i}.0", i > 1),
+                            **block("block1", f"layer{i}.1", False)}
+    return out

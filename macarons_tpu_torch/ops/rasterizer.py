@@ -464,6 +464,20 @@ class PointLights(NamedTuple):
         return cls(location, col(ambient), col(diffuse), col(specular))
 
 
+def front_face_mask(verts, faces, camera):
+    """(F,) bool: the faces a batch-1 camera keeps under backface culling.
+
+    The test is in view space: a face is culled when its geometric normal
+    (from its vertex winding) points away from the camera, i.e. when
+    normal . (centre - camera centre) >= 0. PyTorch3D's screen-space
+    signed area gets faces behind the camera plane wrong, and those are
+    what a camera inside a mesh sees."""
+    n = face_normals(verts, faces)
+    centers = verts[faces].mean(dim=1)
+    view_dir = centers - camera.camera_center().reshape(1, 3)
+    return (n * view_dir).sum(dim=-1) < 0
+
+
 def face_normals(verts, faces):
     fv = verts[faces]
     n = torch.linalg.cross(fv[:, 1] - fv[:, 0], fv[:, 2] - fv[:, 0], dim=-1)

@@ -2,9 +2,11 @@
 package's msgpack checkpoints (macarons_tpu/utils/checkpoint.py).
 
 The port's modules carry the submodule names Flax gives their counterparts,
-so a parameter maps by path. Every Dense of the JAX package wraps an inner
-``nn.Dense`` named ``Dense_0``: its ``kernel`` (in, out) becomes
-``<wrapper>.weight`` (out, in) and its ``bias`` ``<wrapper>.bias``. A
+so a parameter maps by path. Every Dense of the SCONE networks wraps an
+inner ``nn.Dense`` named ``Dense_0``: its ``kernel`` (in, out) becomes
+``<wrapper>.weight`` (out, in) and its ``bias`` ``<wrapper>.bias``; a Dense
+under its own name (the PoseDecoder's ``fc``) becomes ``<name>.weight`` and
+``<name>.bias``. A
 ``nn.Conv`` is told apart by the rank of its kernel: (kh, kw, in, out)
 becomes ``<conv>.weight`` (out, in, kh, kw), its ``bias`` ``<conv>.bias``. A
 LayerNorm's or BatchNorm's ``scale`` and ``bias`` become ``weight`` and
@@ -50,8 +52,9 @@ def flax_to_torch(params_tree: Mapping) -> Dict[str, torch.Tensor]:
                 out[name + ".bias"] = arr
             else:
                 raise KeyError(".".join(path))
-        elif kernel is not None:  # inner nn.Dense of a Dense wrapper
-            name = ".".join(parent[:-1])
+        elif kernel is not None:  # nn.Dense, perhaps inside a wrapper
+            name = ".".join(parent[:-1] if parent[-1].startswith("Dense_")
+                            else parent)
             if leaf == "kernel":
                 out[name + ".weight"] = arr.T.contiguous()
             elif leaf == "bias":
@@ -163,10 +166,13 @@ def load_macarons_weights(model, path: str):
 
 
 def load_module_weights(module, path: str):
-    """Load the ``params`` of a JAX checkpoint (a pretrainer's Flax
-    ``TrainState``, or a variables dict) into ``module``."""
+    """Load the ``params`` (and ``batch_stats``) of a JAX checkpoint into
+    ``module``: a pretrainer's Flax ``TrainState``, a variables dict, or the
+    depth pretrainer's ``{"variables", "opt_state"}``."""
     tree = read_msgpack(path)
-    state = flax_to_torch({"params": tree["params"]})
+    tree = tree.get("variables", tree)
+    state = flax_to_torch({"params": tree["params"],
+                           "batch_stats": tree.get("batch_stats", {})})
     dev = next(module.parameters()).device
     module.load_state_dict({k: v.to(dev) for k, v in state.items()})
     return module

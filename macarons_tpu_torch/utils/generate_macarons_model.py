@@ -10,9 +10,11 @@ Usage: python -m macarons_tpu_torch.utils.generate_macarons_model
 
 Each module checkpoint may be the port's (``.pt``) or the JAX package's
 (``.msgpack``). The depth checkpoint is a port MACARONS checkpoint
-(``.pt``), whose depth network is grafted, or the JAX package's depth
-variables (``.msgpack``, as weights_tools/generate_depth_model.py writes
-them). Modules without a checkpoint keep the trainer's
+(``.pt``), whose depth network is grafted, a depth module checkpoint
+(``.pt``, as utils.generate_depth_model and trainers.pretrain_depth write
+them), or the JAX package's (``.msgpack``: the depth variables
+weights_tools/generate_depth_model.py writes, or a depth pretrainer's
+checkpoint). Modules without a checkpoint keep the trainer's
 seeded initialisation. Writes ``<out>.pt`` and ``<out>.json``, which
 ``python -m macarons_tpu_torch.train`` loads with ``pretrained: true``.
 """
@@ -20,20 +22,34 @@ seeded initialisation. Writes ``<out>.pt`` and ``<out>.json``, which
 import argparse
 import os
 
+import torch
+
 from ..config import load_params
 from ..models.macarons import (
     create_macarons_model,
     init_macarons_weights,
-    load_macarons,
     save_macarons,
 )
 from ..trainers.train_macarons import seeded_generator
 from .checkpoint import checkpoint_exists, load_checkpoint
-from .convert import flax_to_torch, read_msgpack
 from .device import resolve_device
 
 REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+
+
+def load_depth_checkpoint(path: str, depth):
+    """Load the depth network of checkpoint ``path`` into ``depth``: a port
+    MACARONS checkpoint's ``"depth"``, else a module checkpoint's weights
+    (utils.checkpoint.load_checkpoint, ``.pt`` or a JAX ``.msgpack``)."""
+    if os.path.exists(path + ".pt"):
+        dev = next(depth.parameters()).device
+        tree = torch.load(path + ".pt", map_location=dev, weights_only=True)
+        if "depth" in tree:
+            depth.load_state_dict(tree["depth"])
+            return depth
+    load_checkpoint(path, depth)
+    return depth
 
 
 def assemble(params, occ_ckpt=None, vis_ckpt=None, depth_ckpt=None,
@@ -48,14 +64,7 @@ def assemble(params, occ_ckpt=None, vis_ckpt=None, depth_ckpt=None,
         if path and checkpoint_exists(path):
             load_checkpoint(path, net)
     if depth_ckpt and model.depth is not None:
-        if os.path.exists(depth_ckpt + ".pt"):
-            donor = create_macarons_model(params, dev)
-            load_macarons(depth_ckpt, donor)
-            model.depth.load_state_dict(donor.depth.state_dict())
-        else:
-            state = flax_to_torch(read_msgpack(depth_ckpt))
-            model.depth.load_state_dict({k: v.to(dev)
-                                         for k, v in state.items()})
+        load_depth_checkpoint(depth_ckpt, model.depth)
     if out:
         save_macarons(out, model, {"occ_ckpt": occ_ckpt,
                                    "vis_ckpt": vis_ckpt,
@@ -72,8 +81,8 @@ def main(argv=None):
         REPO_DIR,
         "weights/scone/coverage_gain/best_unval_pretrained_scone_vis"))
     parser.add_argument("-d", "--depth", default=None,
-                        help="MACARONS checkpoint whose depth network to "
-                        "graft")
+                        help="MACARONS or depth checkpoint whose depth "
+                        "network to graft")
     parser.add_argument("--out", default=os.path.join(
         REPO_DIR, "weights/macarons/initialized_macarons"))
     parser.add_argument("--config", default=os.path.join(

@@ -243,9 +243,14 @@ def test_model_bundle():
     init_macarons_weights(fixture, torch.Generator().manual_seed(0))
     torch.testing.assert_close(fixture.vis.state_dict(),
                                model.vis.state_dict(), rtol=0, atol=0)
-    for bad in (dict(depth_compute_dtype="bfloat16"), dict(learn_pose=True)):
-        with pytest.raises(NotImplementedError):
-            create_macarons_model(Params(dict(TINY, **DEPTH, **bad)), "cpu")
+    # The pose network and bfloat16 convolutions are built on request.
+    other = create_macarons_model(Params(dict(
+        TINY, **DEPTH, depth_compute_dtype="bfloat16", learn_pose=True)),
+        "cpu")
+    assert other.depth.learn_pose and not model.depth.learn_pose
+    assert (other.depth.depth_decoder.cost_volume_builder.conv_reduce
+            .compute_dtype == torch.bfloat16)
+    assert cvb.conv_reduce.compute_dtype is None
 
 
 def test_checkpoint_loads_depth(tmp_path):

@@ -128,3 +128,42 @@ def make_shapenet_root(tmp_path_factory, n_meshes=8):
     for split in ("train_list.json", "val_list.json", "all_test_list.json"):
         (root / split).write_text(json.dumps({"models": models}))
     return str(root)
+
+
+def resnet18_state_dict(seed):
+    """A torchvision-keyed resnet18 state dict of seeded random tensors
+    (conv weights of variance ~1 / fan_in, BatchNorms near identity, the
+    classifier too), as ``torchvision.models.resnet18().state_dict()``
+    names them."""
+    rs = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(name, o, i, k):
+        sd[name] = rs.normal(size=(o, i, k, k)) / np.sqrt(i * k * k)
+
+    def bn(name, c):
+        sd.update({f"{name}.weight": 1 + 0.1 * rs.normal(size=c),
+                   f"{name}.bias": 0.1 * rs.normal(size=c),
+                   f"{name}.running_mean": 0.1 * rs.normal(size=c),
+                   f"{name}.running_var": 1 + 0.1 * rs.uniform(size=c)})
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(7)
+
+    conv("conv1.weight", 64, 3, 7)
+    bn("bn1", 64)
+    chans = [64, 64, 128, 256, 512]
+    for li in range(1, 5):
+        for b in range(2):
+            cin = chans[li - 1] if b == 0 else chans[li]
+            p = f"layer{li}.{b}"
+            conv(f"{p}.conv1.weight", chans[li], cin, 3)
+            bn(f"{p}.bn1", chans[li])
+            conv(f"{p}.conv2.weight", chans[li], chans[li], 3)
+            bn(f"{p}.bn2", chans[li])
+            if b == 0 and li > 1:
+                conv(f"{p}.downsample.0.weight", chans[li], cin, 1)
+                bn(f"{p}.downsample.1", chans[li])
+    sd["fc.weight"] = rs.normal(size=(1000, 512)) / np.sqrt(512)
+    sd["fc.bias"] = 0.01 * rs.normal(size=1000)
+    return {k: v if isinstance(v, torch.Tensor)
+            else torch.as_tensor(np.asarray(v, np.float32))
+            for k, v in sd.items()}
