@@ -7,7 +7,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   1. build the CUDA kernels from macarons_tpu_torch/csrc (one nvcc per
      source, all started together);
   2. hold each kernel against its plain PyTorch twin on the card, at edge
-     cases; B3's backward kernel (the SCONE step's gradient of the SH
+     cases (B3's forward also at shapes that stress its launch plan:
+     (3, 52, 2048), (1, 53, 1001), (24, 1, 2048), and (2, 5, 333) with
+     poles and pads); B3's backward kernel (the SCONE step's gradient of the SH
      coefficients) against its plain version at the SCONE step's shapes, at
      odd sizes, 5 cameras, the poles and the pads, and its basis against
      the forward kernel's, bit for bit;
@@ -47,9 +49,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      second, an epoch with learn_pose), each checkpoint reloaded two ways,
      the learn_pose step held like the depth step, bfloat16 convolutions
      and the batched stem against float32, step times;
-  8. time each kernel at the shapes of the scene-scale path (B3's backward
-     at the SCONE step's two, beside the launch floor), and hold it against
-     its twin there; time the two-pass composition (B1, B2, merge) against
+  8. time each kernel at the shapes of the scene-scale path (B3 at the
+     scorer's first pose and at the SCONE step's (4, 1, 2048), its backward
+     at the SCONE step's two shapes beside the launch floor), and hold it
+     against its twin there; time the two-pass composition (B1, B2, merge) against
      the fused launch, in turns;
   9. scene_data: the scene-data CLI on the 59,392-face scene and the
      occupied poses of a 12,288-face cube, held against the CPU's tiled
@@ -63,9 +66,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      batches, then a resumed third), the ShapeNet tester on the test split,
      the MACARONS checkpoint assembled from the two and loaded by the
      trainer; the GT held card against CPU at 128x128, one occ and one vis
-     step held card against CPU; B1 + B2 at the GT captures' shapes and B3
-     and its backward at (3, 52, 2048), held against their plain versions
-     and timed;
+     step held card against CPU; B1 + B2 at the GT captures' shapes, B3
+     and its backward at (3, 52, 2048) and B3 at the ShapeNet tester's
+     (1, 52, 2048), held against their plain versions and timed;
  11. print the kernel table (JSON), the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
 Each trajectory prints its pose sequence and coverages. A saved SCONE step
@@ -75,7 +78,8 @@ replays on the card and the CPU with
 Each trajectory (the train phase: both runs together; scone_pretrain: GT,
 both pretrainers and the tester together; scene_data: the CLI's run, then
 the cube's) runs with every kernel's launch count set to 0 just before it
-and read just after. Needs CUDA; never falls
+and read just after; B3's forward also counts its launches by shape, and
+each of its rows gives the launches at its own shape. Needs CUDA; never falls
 back to the CPU.
 """
 
@@ -318,10 +322,15 @@ def sh_inputs(gen, B, C, L, P=4):
 def reset_counts():
     for fn in KERNELS.values():
         fn.launches = 0
+    shv.sh_visibility.launches_at.clear()
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Each kernel's launches, and B3's forward's by (B, C, L) under
+    "sh_visibility_at"."""
+    counts = {name: fn.launches for name, fn in KERNELS.items()}
+    counts["sh_visibility_at"] = dict(shv.sh_visibility.launches_at)
+    return counts
 
 
 def phase_build():
@@ -334,7 +343,11 @@ def phase_build():
 
 
 def phase_kernels(gen):
-    """Kernel vs plain twin at the scorer's shapes and at edge cases."""
+    """Kernel vs plain twin at the scorer's shapes and at edge cases; then
+    at the shapes that stress the forward's launch plan (cameras dealt to
+    slices, point and camera counts that are multiples of no slice or block
+    size), from their own generator: the trajectories after it draw as
+    before."""
     cases = []
     for B, C, L in ((8, 1, 2048), (1, 52, 2048), (1, 8, 16411)):
         for sig in (True, False):
@@ -350,6 +363,17 @@ def phase_kernels(gen):
     for sig in (True, False):
         cases.append((f"poles and pads {'sigmoid' if sig else 'relu'}",
                       (pts, harm, X_cam), sig))
+    plan_gen = make_generator(torch.device("cuda"), SEED + 6)
+    for B, C, L in ((3, 52, 2048), (1, 53, 1001), (24, 1, 2048),
+                    (2, 5, 333)):
+        make = pole_and_pad_inputs if (B, C, L) == (2, 5, 333) else sh_inputs
+        args = make(plan_gen, B, C, L)
+        plan = shv.forward_plan(B, C, L)
+        for sig in (True, False):
+            cases.append((f"{'poles and pads ' if make is not sh_inputs else ''}"
+                          f"({B},{C},{L}), {plan.slices} slices x "
+                          f"{plan.points} points a block "
+                          f"{'sigmoid' if sig else 'relu'}", args, sig))
     worst = 0.0
     for name, (p, h, x), sig in cases:
         out = shv.sh_visibility(p, h, x, use_sigmoid=sig)
@@ -1666,9 +1690,12 @@ def _work_dir():
     return BUILD_DIR
 
 
-def kernel_row(gen, launches, worst_err, shape):
-    """Times at a path's shape (B, C, L): the scene path's per-candidate
-    (C_pad, 1, seq_len), the pretraining lane's (3, 52, 2048)."""
+def kernel_row(gen, launches, worst_err, shape, path=None):
+    """B3's forward held and timed at a path's shape (B, C, L): the scene
+    path's per-candidate scorer (C_pad, 1, seq_len), the SCONE step's
+    (4, 1, 2048), the pretraining lane's (3, 52, 2048) and the ShapeNet
+    tester's (1, 52, 2048); ``path`` names the row's path beside the
+    scorer's."""
     B, C, L = shape
     p, h, x = sh_inputs(gen, B, C, L)
     err = float((shv.sh_visibility(p, h, x)
@@ -1682,14 +1709,18 @@ def kernel_row(gen, launches, worst_err, shape):
     t_bytes = shv.bytes_moved(B, C, L) / PEAK_BYTES_PER_S * 1e3
     dev_ms, _ = profiled_device_ms(lambda: shv.sh_visibility(p, h, x),
                                    "sh_visibility_kernel")
-    print(f"[kernel] sh_visibility ({B},{C},{L}): max |kernel - plain| "
-          f"{err:.3e}, kernel {dev_ms * 1e3:.2f} us (torch.profiler), "
+    plan = shv.forward_plan(B, C, L)
+    print(f"[kernel] sh_visibility ({B},{C},{L}) ({plan.slices} slices x "
+          f"{plan.points} points a block, {plan.blocks} blocks): max |kernel "
+          f"- plain| {err:.3e}, kernel {dev_ms * 1e3:.2f} us (torch.profiler), "
           f"{host_ms * 1e3:.2f} us per call (CUDA events, back-to-back calls, "
-          f"host launch included)", flush=True)
+          f"host launch included), bound {max(t_ops, t_bytes) * 1e3:.2f} us, "
+          f"{launches} launches on its path", flush=True)
     # "ms" is the kernel's device time from the profiler; "host_ms" the
     # per-call time between CUDA events, host launch included.
     return {
-        "name": "sh_visibility", "route": "cuda",
+        "name": "sh_visibility" + (f" ({path}, {B}x{C}x{L})" if path else ""),
+        "route": "cuda",
         "source": "macarons_tpu_torch/csrc/sh_visibility.cu",
         "replaces": "macarons_tpu/ops/pallas/sh_visibility.py:133",
         "launches": launches, "max_abs_err": max(worst_err, err),
@@ -1698,6 +1729,17 @@ def kernel_row(gen, launches, worst_err, shape):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None, "shape": [B, C, L], "host_ms": host_ms,
     }
+
+
+def launches_at(counts, shape, want=None):
+    """B3's forward launches at ``shape`` from a phase's counts; fails if
+    there are none, or not ``want``."""
+    n = counts["sh_visibility_at"].get(tuple(shape), 0)
+    if n <= 0 or (want is not None and n != want):
+        fail(f"B3's forward launched {n} times at {tuple(shape)}, not "
+             f"{want if want is not None else 'at least once'}: "
+             f"{counts['sh_visibility_at']}")
+    return n
 
 
 def hold_backward(p, h, x, sig, g):
@@ -2414,10 +2456,14 @@ class counting:
 
 def pretrain_sh_rows(gen, counts, worst, worst_backward):
     """B3 and its backward at the coverage-gain pretrainer's shape
-    (3, 52, 2048): held against their plain versions and timed, with the
-    launch floor; their launches are the scone_pretrain phase's."""
+    (3, 52, 2048) and B3 at the ShapeNet tester's (1, 52, 2048): held
+    against their plain versions and timed, with the launch floor; their
+    launches are the scone_pretrain phase's at each shape."""
     shape = (3, 52, 2048)
-    fwd = kernel_row(gen, counts["sh_visibility"], worst, shape)
+    fwd = kernel_row(gen, launches_at(counts, shape), worst, shape,
+                     "pretraining")
+    tester = kernel_row(gen, launches_at(counts, (1, 52, 2048)), worst,
+                        (1, 52, 2048), "ShapeNet tester")
     t = backward_times(gen, *shape)
     if not t["max_abs_err"] <= BACKWARD_REL:
         fail(f"sh_visibility_backward {shape} differs from its plain "
@@ -2436,8 +2482,7 @@ def pretrain_sh_rows(gen, counts, worst, worst_backward):
                launches=counts["sh_visibility_backward"],
                max_abs_err=max(worst_backward, t["max_abs_err"]),
                library_ms=None, launch_floor_ms=floor)
-    fwd["name"] = "sh_visibility (pretraining, 3x52x2048)"
-    return [fwd, bwd]
+    return [fwd, tester, bwd]
 
 
 # ---------------------------------------------------------------------------
@@ -2860,8 +2905,11 @@ def main():
     f9, size = phase_scene_render(big)
     phase_depth()
     rows = raster_rows(big["counts"], worst_raster, f9, size)
-    rows.append(kernel_row(gen, big["counts"]["sh_visibility"], worst,
-                           (big["c_pad"], 1, big["seq_len"])))
+    # The scorer's first pose: its candidate count varies from pose to pose
+    # (the row counts the launches at this one).
+    scorer = (big["c_pad"], 1, big["seq_len"])
+    rows.append(kernel_row(gen, launches_at(big["counts"], scorer), worst,
+                           scorer))
     # B3's backward at the SCONE step's shapes: the supervision window's
     # cameras, one per candidate batch, or all of them on one shared sample
     # of seq_len points.
@@ -2876,6 +2924,11 @@ def main():
             fail(f"the SCONE step ran B3 at {train}, not "
                  f"{backward['shape']}")
         backward["launches"] = train["counts"]["sh_visibility_backward"]
+        # The SCONE step's forward, one launch per step as its backward.
+        step = (train["n_cams"], 1, train["seq_len"])
+        rows.append(kernel_row(gen, launches_at(train["counts"], step,
+                                                backward["launches"]),
+                               worst, step, "SCONE step"))
         rows.append(backward)
         phase_depth_pretrain(train["frames_dirs"], train.pop("model"))
     finally:

@@ -6,7 +6,8 @@ degree 8), theta = pi/2 - elev, phi = azim.
 
 ``sh_weighted_sum`` is the plain PyTorch twin of the CUDA SH-visibility
 kernel (ops/cuda/sh_visibility.py): the same algebraic angles, Legendre and
-Chebyshev recurrences and clamps, term by term.
+Chebyshev recurrences and clamps (the kernel folds the normalisations into
+its Legendre recurrences, so the two differ in rounding only).
 """
 
 from __future__ import annotations

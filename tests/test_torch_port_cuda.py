@@ -77,7 +77,14 @@ def gen():
 
 @pytest.mark.parametrize("B,C,L,sig", [(8, 1, 2048, True), (1, 52, 2048, True),
                                        (1, 8, 16411, False), (3, 2, 5, True),
-                                       (3, 52, 2048, True)])
+                                       (3, 52, 2048, True),
+                                       (3, 52, 2048, False),
+                                       (1, 53, 1001, True),
+                                       (1, 53, 1001, False),
+                                       (24, 1, 2048, True),
+                                       (24, 1, 2048, False),
+                                       (4, 1, 2048, True),
+                                       (2, 5, 333, True), (2, 5, 333, False)])
 def test_sh_visibility_kernel(gen, B, C, L, sig):
     pts = torch.randn(B, L, 4, device="cuda", generator=gen)
     pts[:, : L // 4, 0] = 0.0  # on the vertical axis of cameras at x = z = 0
