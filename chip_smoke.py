@@ -18,14 +18,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      capture), with random SCONE weights from a seed, and check its outputs;
   4. score the trajectory's last candidates again on the card and on the CPU
      (the plain twins) with the same Monte-Carlo sample: the gains agree;
-  5. scene-scale capture: the same trajectory on synth_00 subdivided 4 times
+  5. suite_eval: the synthetic-suite evaluation as users run it
+     (run_suite_eval under eval_params: perfect depth, the carving field)
+     on 2 scenes x 2 starts x 10 poses for nbv (the committed SconeVis
+     weights), random and carving; B3 launched, the summaries finite, the
+     random walk's first trajectory on RESULTS_synthetic.json's poses; the
+     reduced rows and the time per pose printed;
+  6. scene-scale capture: the same trajectory on synth_00 subdivided 4 times
      (59,392 faces: tiled capture, one fused launch of the tile raster
      kernel per capture for TPU kernels B1 and B2), run twice from one
      generator state: the same poses, coverages and gains, bit for bit, and
      the sampling CDF's scan repeats; then one move's frames rasterized on
      the card and on the CPU (the plain versions): the same face ids; the
      tiled path's time, first call and warm;
-  6. depth: the default test config as users run it, on the 59,392-face
+  7. depth: the default test config as users run it, on the 59,392-face
      scene: ManyDepth depth at 256x456 with 96 planes and the predicted
      SconeOcc field, random weights for the three networks from a seed, 5
      nbv poses; every disparity in (0, 1), every depth finite and in
@@ -33,7 +39,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      on the last decision batch (B 1) and the last supervision batch (B 4):
      the disparities and the depth step's masks agree; ManyDepth's forward
      time at B 1 and B 4;
-  7. train: run_training with the default training config on the
+  8. train: run_training with the default training config on the
      59,392-face scene, epoch 0 (4 poses, a remap at pose 2), then a resumed
      run through epoch 1 with depth and SCONE replay, validating on the
      scene after each epoch (2 poses, the coverage_validated_ checkpoint);
@@ -49,17 +55,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      second, an epoch with learn_pose), each checkpoint reloaded two ways,
      the learn_pose step held like the depth step, bfloat16 convolutions
      and the batched stem against float32, step times;
-  8. time each kernel at the shapes of the scene-scale path (B3 at the
-     scorer's first pose and at the SCONE step's (4, 1, 2048), its backward
+  9. time each kernel at the shapes of the scene-scale path (B3 at the
+     scorer's first pose, at the suite scorer's most frequent
+     (C_pad, 1, 512) and at the SCONE step's (4, 1, 2048), its backward
      at the SCONE step's two shapes beside the launch floor), and hold it
      against its twin there; time the two-pass composition (B1, B2, merge) against
      the fused launch, in turns;
-  9. scene_data: the scene-data CLI on the 59,392-face scene and the
+ 10. scene_data: the scene-data CLI on the 59,392-face scene and the
      occupied poses of a 12,288-face cube, held against the CPU's tiled
      plain path (poses and flags), rasterize_tiled with a face mask twice
      per position and no culled face winning a pixel; time per position,
      device and host;
- 10. scone_pretrain: a ShapeNet-format root of 8 synthetic meshes (two
+ 11. scone_pretrain: a ShapeNet-format root of 8 synthetic meshes (two
      above 4096 faces) and its GT at ShapeNetGTConfig's widths (52 FoV and
      6 orthographic cameras at 512x512: the tiled path), the occupancy and
      coverage-gain pretrainers at their configs' widths (2 epochs of 2
@@ -69,7 +76,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      step held card against CPU; B1 + B2 at the GT captures' shapes, B3
      and its backward at (3, 52, 2048) and B3 at the ShapeNet tester's
      (1, 52, 2048), held against their plain versions and timed;
- 11. print the kernel table (JSON), the card's name and power limit, and the
+ 12. print the kernel table (JSON), the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
 Each trajectory prints its pose sequence and coverages. A saved SCONE step
 replays on the card and the CPU with
@@ -110,8 +117,8 @@ from macarons_tpu_torch.data import datasets, generate_scene_data, \
 from macarons_tpu_torch.data.mesh_io import Mesh, load_obj, save_obj
 from macarons_tpu_torch.data.scenes import SceneDataset, SceneSettings, \
     compute_occupied_poses, compute_scene_settings, pose_camera
-from macarons_tpu_torch.data.synthetic_suite import build_scene_mesh, \
-    generate_suite
+from macarons_tpu_torch.data.synthetic_suite import SUITE_VIS_INIT, \
+    build_scene_mesh, generate_suite, run_suite_eval
 from macarons_tpu_torch.models import scone as scone_model
 from macarons_tpu_torch.models.attention import PCTransformer, init_weights
 from macarons_tpu_torch.models.macarons import (
@@ -527,6 +534,62 @@ def phase_trajectory(gen, label, levels, needs, fixture=True):
                 rt=rt, model=model, call=calls[-1], traj=traj, scene=scene,
                 params=params, depth_log=depth_log, depths=depths,
                 disps=disps, peak_gib=peak_gib, gains=gains_log)
+
+
+SUITE_SCENES, SUITE_STARTS, SUITE_POSES = 2, 2, 10
+SUITE_POLICIES = ("nbv", "random", "carving")
+
+
+def phase_suite_eval():
+    """The synthetic-suite evaluation as users run it
+    (``run_suite_eval`` under ``eval_params``), cut to SUITE_SCENES scenes
+    x SUITE_STARTS starts x SUITE_POSES poses for each policy, nbv on the
+    committed SconeVis weights, with every launch count set to 0 just
+    before and read just after. Fails unless B3 launched, the summaries
+    are finite and the random walk's first trajectory takes the committed
+    RESULTS_synthetic.json's poses (one numpy generator serves a whole
+    run, so at this depth only its first trajectory's draws line up with
+    the committed 100-pose run's). Returns the launch counts."""
+    tag = "[suite_eval]"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_suite_",
+                                     dir=_work_dir()) as tmp:
+        root = generate_suite(os.path.join(tmp, "scenes"),
+                              n_scenes=SUITE_SCENES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        data = run_suite_eval(
+            root, os.path.join(tmp, "results.json"), n_poses=SUITE_POSES,
+            n_start_poses=SUITE_STARTS, policies=SUITE_POLICIES,
+            device="cuda", vis_weights_path=SUITE_VIS_INIT, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    per_pose = data["_protocol"]["seconds_per_pose"]
+    print(f"{tag} {SUITE_SCENES} scenes x {SUITE_STARTS} starts x "
+          f"{SUITE_POSES} poses per policy in {wall:.2f} s, peak device "
+          f"memory {peak_gib:.2f} GiB, launches {counts}", flush=True)
+    for policy in SUITE_POLICIES:
+        print(f"{tag} {policy}: {json.dumps(data['_all_summaries'][policy])}"
+              f", {per_pose[policy] * 1e3:.2f} ms per pose", flush=True)
+    print(f"{tag} lift: {json.dumps(data['_lift'])}", flush=True)
+    rows = [v for row in data["_all_summaries"].values()
+            for k, v in row.items() if k != "n_traj"]
+    if not np.all(np.isfinite(rows)):
+        fail(f"non-finite suite summaries: {data['_all_summaries']}")
+    if counts["sh_visibility"] <= 0:
+        fail("the suite's nbv policy never launched the sh_visibility kernel")
+    with open(os.path.join(REPO_DIR, "RESULTS_synthetic.json")) as f:
+        committed = json.load(f)["_baselines"]["random"]["synth_00"]["0"]
+    ours = data["_baselines"]["random"]["synth_00"]["0"]["cam_idx"]
+    if ours != committed["cam_idx"][:SUITE_POSES + 1]:
+        fail(f"the random walk left the committed poses: {ours} against "
+             f"{committed['cam_idx'][:SUITE_POSES + 1]}")
+    print(f"{tag} random walk synth_00 start 0: {SUITE_POSES + 1} poses as "
+          "committed", flush=True)
+    return counts
 
 
 def hold_raster(name, kernel, plain, args):
@@ -2896,6 +2959,7 @@ def main():
     worst_raster = phase_raster_kernels(gen)
     small = phase_trajectory(gen, "trajectory", 0, ["sh_visibility"])
     phase_reference(gen, small["rt"], small["model"], small["call"])
+    suite = phase_suite_eval()
     state = gen.get_state()
     big = phase_trajectory(gen, "scene scale", SCENE_LEVELS, SCENE_KERNELS)
     if big["counts"]["rasterize_pairs"] or big["counts"]["rasterize_tiles"]:
@@ -2910,6 +2974,11 @@ def main():
     scorer = (big["c_pad"], 1, big["seq_len"])
     rows.append(kernel_row(gen, launches_at(big["counts"], scorer), worst,
                            scorer))
+    # The suite's scorer (eval_params: seq_len 512) at its most frequent
+    # candidate bucket.
+    at = suite["sh_visibility_at"]
+    shape = max(at, key=at.get)
+    rows.append(kernel_row(gen, at[shape], worst, shape, "suite scorer"))
     # B3's backward at the SCONE step's shapes: the supervision window's
     # cameras, one per candidate batch, or all of them on one shared sample
     # of seq_len points.

@@ -126,10 +126,12 @@ def _min_sqdist_in_cell(state: GridState, pts, cid, chunk: int = 16384):
 
 
 def fill_cells(cfg: GridConfig, state: GridState, gen: torch.Generator, pts,
-               pts_mask=None, features=None) -> GridState:
+               pts_mask=None, features=None, draws=None) -> GridState:
     """Insert points (P, 3): mask to the box, drop points within
     ``resolution`` of a stored point of their cell, rank the rest per cell in
-    a random order, then keep a random capacity-subset of old + new."""
+    a random order, then keep a random capacity-subset of old + new.
+    ``draws`` (the (P,) permutation, the (C, 2K) uniform scores) injects the
+    two draws in place of ``gen``'s."""
     dev = pts.device
     P = pts.shape[0]
     C, K = cfg.n_cells, cfg.capacity
@@ -143,7 +145,8 @@ def fill_cells(cfg: GridConfig, state: GridState, gen: torch.Generator, pts,
     cid = cell_index(cfg, pts)
     ok = ok & (_min_sqdist_in_cell(state, pts, cid) > cfg.resolution ** 2)
 
-    perm = torch.randperm(P, generator=gen, device=gen.device).to(dev)
+    perm = (torch.randperm(P, generator=gen, device=gen.device)
+            if draws is None else draws[0]).to(dev)
     pts_s, feat_s, ok_s, cid_s = pts[perm], features[perm], ok[perm], cid[perm]
     cid_s = torch.where(ok_s, cid_s, C)
 
@@ -171,8 +174,9 @@ def fill_cells(cfg: GridConfig, state: GridState, gen: torch.Generator, pts,
     all_pts = torch.cat([state.points, staging_pts[:C]], dim=1)
     all_feat = torch.cat([state.features, staging_feat[:C]], dim=1)
     all_valid = torch.cat([state.valid, staging_valid[:C]], dim=1)
-    scores = torch.rand(all_valid.shape, generator=gen, device=gen.device).to(
-        dev) + torch.where(all_valid, 0.0, _BIG)
+    scores = (torch.rand(all_valid.shape, generator=gen, device=gen.device)
+              if draws is None else draws[1]).to(dev) + torch.where(
+        all_valid, 0.0, _BIG)
     take = smallest_k(scores, K)[1]
     return GridState(
         torch.gather(all_pts, 1, take[..., None].expand(C, K, 3)),

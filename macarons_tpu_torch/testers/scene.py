@@ -18,7 +18,8 @@ import torch
 
 from ..config import Params
 from ..data.scenes import SceneDataset
-from ..models.macarons import create_macarons_model, init_macarons_weights
+from ..models.macarons import create_macarons_model, \
+    init_macarons_weights, load_macarons
 from ..ops.geometry import FoVCamera
 from ..ops.projection import points_in_fov_mask, project_depth_back_to_3D
 from ..scene import grid as G
@@ -38,6 +39,8 @@ from ..trainers.train_macarons import (
     scene_field,
     setup_scene,
 )
+from ..utils.checkpoint import checkpoint_exists
+from ..utils.convert import load_module_weights
 from ..utils.device import make_generator, resolve_device
 
 
@@ -190,11 +193,13 @@ def run_test(params: Params, data_path: Optional[str] = None,
              max_scenes: Optional[int] = None,
              test_scenes: Optional[list] = None, load_json: bool = False,
              policy: str = "nbv", device="cuda", weights_path=None,
-             verbose: bool = True):
+             vis_weights_path=None, verbose: bool = True):
     """Evaluation over scenes x start poses; writes the results JSON after
     every trajectory. Runs on ``device`` ("cuda" unless the caller asks for
-    the CPU). Weights come from ``weights_path`` (a JAX msgpack checkpoint)
-    if it exists, else from a random init seeded by ``torch_seed``."""
+    the CPU). Weights come from ``weights_path`` (a MACARONS checkpoint: the
+    port's ``.pt`` or a JAX ``.msgpack``) if it exists, else from a random
+    init seeded by ``torch_seed``; ``vis_weights_path`` (a SconeVis
+    variables msgpack) then replaces SconeVis's."""
     dev = resolve_device(device)
     data_path = data_path or params.get("dataset_path") or params.data_path
     rs = np.random.default_rng(params.get("random_seed", 42))
@@ -211,15 +216,15 @@ def run_test(params: Params, data_path: Optional[str] = None,
         dataset = SceneDataset(data_path, scene_names=[
             n for n in test_scenes if n in available])
     model = create_macarons_model(params, dev)
-    if weights_path and os.path.exists(weights_path + ".msgpack"):
-        from ..utils.convert import load_macarons_weights
-
-        load_macarons_weights(model, weights_path)
+    if weights_path and checkpoint_exists(weights_path):
+        load_macarons(weights_path, model)
     else:
         if weights_path and verbose:
-            print(f"no checkpoint {weights_path}.msgpack: random weights "
+            print(f"no checkpoint {weights_path}: random weights "
                   "(as the JAX tester does)")
         init_macarons_weights(model, gen)
+    if vis_weights_path:
+        load_module_weights(model.vis, vis_weights_path)
 
     surface_epsilon = (2.0 * params.get("test_resolution", 0.05)
                        * params.get("scene_scale_factor", 1.0))

@@ -67,9 +67,12 @@ from ..scene.depth_runtime import (
     perfect_depth_inference,
 )
 from ..scene.memory import Memory
+from ..utils.convert import load_module_weights
 from ..utils.device import resolve_device
 from ..utils.schedule import warmup_rate
 
+REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 @dataclass
 class SceneState:
@@ -983,6 +986,11 @@ def run_training(params: Params, data_path: Optional[str] = None,
     dataset = SceneDataset(data_path)
     model = create_macarons_model(params, dev)
     init_macarons_weights(model, seeded_generator(dev, torch_seed))
+    if params.get("vis_init_path"):
+        # SconeVis's starting weights, a SconeVis variables msgpack; a
+        # relative path is the repo's.
+        load_module_weights(model.vis, os.path.join(REPO_DIR,
+                                                    params.vis_init_path))
     opts = create_optimizers(params, model)
 
     name = params.get("macarons_model_name", "macarons")

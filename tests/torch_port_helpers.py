@@ -167,3 +167,33 @@ def resnet18_state_dict(seed):
     return {k: v if isinstance(v, torch.Tensor)
             else torch.as_tensor(np.asarray(v, np.float32))
             for k, v in sd.items()}
+
+
+def write_suite_vis_init(path):
+    """Write ``<path>.msgpack``: the SconeVis variables of the JAX scene
+    tester's fixed-seed init under the synthetic suite's ``eval_params``
+    (``init_macarons_variables`` under ``jax.random.split(PRNGKey(
+    torch_seed))``, macarons_tpu/testers/scene.py), the weights of the
+    committed ``nbv`` row. Runs the JAX package on the CPU (~50 s, mostly
+    the depth network's init); the port reads the file with
+    ``utils.convert.load_module_weights``."""
+    import os
+    import sys
+
+    import jax
+    from flax import serialization
+
+    from macarons_tpu.config import Params as JParams
+    from macarons_tpu.models.macarons import create_macarons_model as jcreate
+    from macarons_tpu.models.macarons import init_macarons_variables
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "data_tools"))
+    import synthetic_suite
+
+    params = JParams(synthetic_suite.eval_params(""))
+    _, k_init = jax.random.split(jax.random.PRNGKey(params.torch_seed))
+    variables = init_macarons_variables(params, jcreate(params), k_init)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path + ".msgpack", "wb") as f:
+        f.write(serialization.to_bytes(variables.vis))
