@@ -2,6 +2,8 @@
 
 Usage: python3 chip_smoke.py
        python3 chip_smoke.py --depth-holds N   (only the depth hold, N times)
+       python3 chip_smoke.py --group-times     (only scene groups 1, 2, 4
+                                                timed, phase_group_times)
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. build the CUDA kernels from macarons_tpu_torch/csrc (one nvcc per
@@ -54,7 +56,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      phase's frames at 256x456 with 96 planes, batch 4 (an epoch, a resumed
      second, an epoch with learn_pose), each checkpoint reloaded two ways,
      the learn_pose step held like the depth step, bfloat16 convolutions
-     and the batched stem against float32, step times;
+     and the batched stem against float32, step times; then train group:
+     run_training at n_parallel_scenes 2 on synth_00 and synth_01, each
+     subdivided to 59,392 faces, as the train phase (4 group poses, a
+     resumed epoch with depth replay at twice the samples and SCONE
+     replay scene by scene): one depth step over both scenes' windows and
+     one SCONE step on the mean of their losses per group pose, the checks
+     of phase_train_group, one group SCONE step held card against CPU,
+     times per scene-pose, the replay split and the peak memory;
   9. time each kernel at the shapes of the scene-scale path (B3 at the
      scorer's first pose, at the suite scorer's most frequent
      (C_pad, 1, 512) and at the SCONE step's (4, 1, 2048), its backward
@@ -118,7 +127,7 @@ from macarons_tpu_torch.data.mesh_io import Mesh, load_obj, save_obj
 from macarons_tpu_torch.data.scenes import SceneDataset, SceneSettings, \
     compute_occupied_poses, compute_scene_settings, pose_camera
 from macarons_tpu_torch.data.synthetic_suite import SUITE_VIS_INIT, \
-    build_scene_mesh, generate_suite, run_suite_eval
+    build_scene_mesh, generate_suite, run_suite_eval, suite_training_params
 from macarons_tpu_torch.models import scone as scone_model
 from macarons_tpu_torch.models.attention import PCTransformer, init_weights
 from macarons_tpu_torch.models.macarons import (
@@ -145,6 +154,7 @@ from macarons_tpu_torch.scene.depth_runtime import (
     many_depth_inputs,
     sample_augmentation,
 )
+from macarons_tpu_torch.scene import runtime as scene_runtime
 from macarons_tpu_torch.scene.memory import Memory
 from macarons_tpu_torch.testers import shapenet as shapenet_tester
 from macarons_tpu_torch.testers.scene import compute_trajectory
@@ -975,27 +985,41 @@ def phase_depth():
 
 class StepRecorder:
     """Counts the runtime's optimizer steps per (epoch, phase) while it is
-    entered, and keeps the arguments of every online depth and SCONE step.
-    ``on_phase`` is the trainer's phase hook: it also records a CUDA event
-    at every phase boundary."""
+    entered, keeps the arguments of every online depth and SCONE step (of
+    a scene group's SCONE step, the last), the batch size of every depth
+    step, and the host seconds spent in the replay memory's reads per
+    (epoch, pose, phase). ``on_phase`` is the trainer's phase hook: it
+    also records a CUDA event at every phase boundary."""
+
+    # The Memory methods that read files; time spent in one called from
+    # another counts once.
+    READS = ("load_frame", "load_frame_sequence", "load_depth",
+             "load_surface_scene", "load_occupancy_field",
+             "get_random_scene_for_scone")
 
     def __init__(self):
-        self.epoch, self.phase = None, None
+        self.epoch, self.pose, self.phase = None, None, None
         self.steps = {}
         self.events = {}
         self.depth_calls = []
+        self.depth_batches = {}
         self.scone_calls = []
+        self.group_call = None
+        self.reads = {}
 
     def on_phase(self, epoch, pose_i, name):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         self.events[(epoch, pose_i, name)] = ev
-        self.epoch, self.phase = epoch, name
+        self.epoch, self.pose, self.phase = epoch, pose_i, name
 
     def __enter__(self):
         self.saved = (MacaronsRuntime.depth_train_step,
-                      MacaronsRuntime.scone_train_step)
-        depth_step, scone_step = self.saved
+                      MacaronsRuntime.scone_train_step,
+                      MacaronsRuntime.parallel_scone_train_step,
+                      {n: getattr(Memory, n) for n in self.READS})
+        depth_step, scone_step, group_step, reads = self.saved
+        depth_in_read = [0]
 
         def count(kind):
             key = (self.epoch, self.phase, kind)
@@ -1003,6 +1027,8 @@ class StepRecorder:
 
         def depth(rt, opt, batch, alpha, **kw):
             count("depth")
+            self.depth_batches.setdefault((self.epoch, self.phase), []).append(
+                int(batch["images"].shape[0]))
             if self.phase == "depth_step":
                 self.depth_calls.append((rt, batch, alpha))
             return depth_step(rt, opt, batch, alpha, **kw)
@@ -1013,13 +1039,42 @@ class StepRecorder:
                 self.scone_calls.append((rt, args, kw))
             return scone_step(rt, *args, **kw)
 
+        def group(rt, opt, members, **kw):
+            count("scone_group")
+            self.group_call = (rt, members, kw)
+            if len(members) == 1 and self.phase == "scone_step":
+                self.scone_calls.append(lone_scone_call(rt, opt, members[0],
+                                                        kw))
+            return group_step(rt, opt, members, **kw)
+
+        def timed(fn):
+            @functools.wraps(fn)
+            def read(*args, **kw):
+                if depth_in_read[0]:
+                    return fn(*args, **kw)
+                depth_in_read[0] += 1
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    depth_in_read[0] -= 1
+                    key = (self.epoch, self.pose, self.phase)
+                    self.reads[key] = (self.reads.get(key, 0.0)
+                                       + time.perf_counter() - t0)
+            return read
+
         MacaronsRuntime.depth_train_step = depth
         MacaronsRuntime.scone_train_step = scone
+        MacaronsRuntime.parallel_scone_train_step = group
+        for name, fn in reads.items():
+            setattr(Memory, name, timed(fn))
         return self
 
     def __exit__(self, *exc):
-        (MacaronsRuntime.depth_train_step,
-         MacaronsRuntime.scone_train_step) = self.saved
+        (MacaronsRuntime.depth_train_step, MacaronsRuntime.scone_train_step,
+         MacaronsRuntime.parallel_scone_train_step) = self.saved[:3]
+        for name, fn in self.saved[3].items():
+            setattr(Memory, name, fn)
 
     def count(self, epoch, phase, kind):
         return self.steps.get((epoch, phase, kind), 0)
@@ -1027,6 +1082,34 @@ class StepRecorder:
     def span(self, epoch, pose_i, a, b):
         return self.events[(epoch, pose_i, a)].elapsed_time(
             self.events[(epoch, pose_i, b)])
+
+    def read_ms(self, epoch, pose_i, phase):
+        return 1e3 * self.reads.get((epoch, pose_i, phase), 0.0)
+
+    def replay_split(self, epoch, pose_i):
+        """A replaying pose's split (ms): depth replay, SCONE replay and the
+        remap between CUDA events, each with the host time of its memory
+        reads."""
+        return {phase: (round(self.span(epoch, pose_i, phase, nxt), 2),
+                        round(self.read_ms(epoch, pose_i, phase), 2))
+                for phase, nxt in (("depth_replay", "scone_replay"),
+                                   ("scone_replay", "remap"),
+                                   ("remap", "done"))}
+
+
+def lone_scone_call(rt, opt, x, kw):
+    """A group of one's SCONE step (a parallel_scone_train_step call on one
+    scene's SceneSupervision ``x``) as the (rt, args, kw) of the
+    scone_train_step call that computes it, for hold_scone_step."""
+    box_diag = float(np.linalg.norm(np.asarray(x.cfg.x_max)
+                                    - np.asarray(x.cfg.x_min)))
+    args = (opt, x.proxy, x.surface, x.prediction_camera, x.close_mask,
+            x.visited_cams, x.visited_X, x.supervision_gains, x.field)
+    return rt, args, dict(
+        n_supervision=rt.params.get(
+            "n_proxy_point_for_occupancy_supervision", 6000),
+        box_diag=box_diag, cell_resolution=x.cfg.resolution,
+        n_cells_active=kw.get("n_cells_active"), sup_occ=x.sup_occ)
 
 
 def train_params(root, epochs):
@@ -1599,6 +1682,10 @@ def phase_train(frames_to):
                 f"{a} {rec.span(e, i, a, b):.2f}" for a, b in
                 zip(TRAIN_PHASES, TRAIN_PHASES[1:]))
             print(f"[train] epoch {e} pose {i} (ms): {spans}", flush=True)
+    for i in range(TRAIN_POSES):
+        print(f"[train] epoch 1 pose {i} replay split (ms: phase between "
+              f"CUDA events, of it memory reads on the host): "
+              f"{rec.replay_split(1, i)}", flush=True)
     steps = {k: v for k, v in sorted(rec.steps.items(),
                                      key=lambda kv: str(kv[0]))}
     print(f"[train] epoch 0 {t1 - t0:.2f} s, epoch 1 (resumed) {t2 - t1:.2f} "
@@ -1621,8 +1708,9 @@ def phase_train(frames_to):
     for name in TRAIN_KERNELS:
         if counts[name] <= 0:
             fail(f"the train phase never launched the {name} kernel")
+    # A lone scene's online step is a group step of one scene.
     n_scone = sum(v for (_, _, kind), v in rec.steps.items()
-                  if kind == "scone")
+                  if kind in ("scone", "scone_group"))
     if counts["sh_visibility_backward"] != n_scone:
         fail(f"{counts['sh_visibility_backward']} launches of the B3 "
              f"backward kernel for {n_scone} SCONE steps")
@@ -1694,6 +1782,312 @@ def phase_train(frames_to):
           f"{s_peak:.2f} GiB", flush=True)
     return dict(counts=counts, n_cams=int(sargs[5].R.shape[0]),
                 seq_len=p1.seq_len, frames_dirs=frames_dirs, model=model)
+
+
+GROUP = 2
+GROUP_PHASES = tuple(f"{p}/{i}" for i in range(GROUP)
+                     for p in ("decision", "capture")) + (
+    "depth_step", "supervision", "scone_step", "depth_replay",
+    "scone_replay", "remap", "done")
+
+
+def group_suite(root, levels, n_scenes=GROUP):
+    """The synthetic suite's first ``n_scenes`` scenes under ``root``, each
+    mesh subdivided ``levels`` times (synth_00 and synth_01: 59,392 faces
+    each at 4 levels, in boxes of different heights)."""
+    root = generate_suite(root, n_scenes=n_scenes)
+    for i in range(n_scenes):
+        path = os.path.join(root, f"synth_{i:02d}", "mesh.obj")
+        save_obj(path, subdivide(load_obj(path), levels))
+    return root
+
+
+def phase_train_group():
+    """Scene-group training as users run it: run_training with the default
+    training config at full widths and n_parallel_scenes GROUP on
+    synth_00 and synth_01 subdivided SCENE_LEVELS times. Epoch 0:
+    TRAIN_POSES group poses (decisions, moves and captures scene by scene,
+    one depth step over both scenes' windows, one SCONE step on the mean
+    of their losses), a remap at pose TRAIN_REMAP; then a resumed epoch 1
+    with depth replay at GROUP times n_memory_samples frames and SCONE
+    replay scene by scene. Launch counts are set to 0 before the first run
+    and read after the second. Fails unless the losses are finite with a
+    positive depth loss, the three networks moved, each scene saved 1 +
+    n_alpha + poses x interpolation steps frames per trajectory, one group
+    SCONE step ran per group pose, the depth replay took GROUP times the
+    samples, rasterize_tiled and both B3 kernels launched, the B3 backward
+    GROUP times per group SCONE step and once per replay step; then one
+    group SCONE step on the card against the CPU (hold_group_scone_step).
+    Prints each group pose's phase times per scene-pose, the replay split
+    and the peak device memory. Returns the launch counts."""
+    dev = resolve_device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_group_",
+                                     dir=_work_dir()) as tmp:
+        root = group_suite(os.path.join(tmp, "scenes"), SCENE_LEVELS)
+        wdir, mroot = os.path.join(tmp, "weights"), os.path.join(tmp, "mem")
+        p0, p1 = train_params(root, 1), train_params(root, 2)
+        for p in (p0, p1):
+            p.update(dict(n_parallel_scenes=GROUP))
+        init = create_macarons_model(p0, dev)
+        init_macarons_weights(init, seeded_generator(dev, p0.torch_seed))
+        init = {name: {k: v.detach().cpu().clone() for k, v in
+                       getattr(init, name).state_dict().items()}
+                for name in ("occ", "vis", "depth")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with StepRecorder() as rec:
+            run_training(p0, weights_dir=wdir, memory_root=mroot, device=dev,
+                         verbose=False, on_phase=rec.on_phase)
+            t1 = time.perf_counter()
+            model, losses = run_training(p1, weights_dir=wdir,
+                                         memory_root=mroot, device=dev,
+                                         verbose=False, on_phase=rec.on_phase)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = read_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        names = SceneDataset(root).scene_names
+        n_frames = {n: [len(os.listdir(os.path.join(
+            mroot, n, p0.memory_dir_name, "training", str(t), "frames")))
+            for t in (0, 1)] for n in names}
+
+    for e in (0, 1):
+        for i in range(TRAIN_POSES):
+            spans = ", ".join(
+                f"{a} {rec.span(e, i, a, b) / GROUP:.2f}" for a, b in
+                zip(GROUP_PHASES, GROUP_PHASES[1:]))
+            total = rec.span(e, i, GROUP_PHASES[0], "done") / GROUP
+            print(f"[train group] epoch {e} pose {i}, ms per scene-pose "
+                  f"(group {GROUP}): {total:.2f}: {spans}", flush=True)
+    for i in range(TRAIN_POSES):
+        print(f"[train group] epoch 1 pose {i} replay split for the group "
+              f"(ms: phase between CUDA events, of it memory reads on the "
+              f"host): {rec.replay_split(1, i)}", flush=True)
+    steps = {k: v for k, v in sorted(rec.steps.items(),
+                                     key=lambda kv: str(kv[0]))}
+    print(f"[train group] epoch 0 {t1 - t0:.2f} s, epoch 1 (resumed) "
+          f"{t2 - t1:.2f} s for {GROUP} scenes x {TRAIN_POSES} poses; "
+          f"losses {losses}; optimizer steps (epoch, phase, kind): {steps}; "
+          f"depth batch sizes {rec.depth_batches}; frames per trajectory "
+          f"{n_frames}; launches {counts}", flush=True)
+    print(f"[train group] peak device memory {peak_gib:.2f} GiB", flush=True)
+
+    for row in losses:
+        if not (all(np.isfinite(v) for v in row.values())
+                and row["depth"] > 0):
+            fail(f"group losses not finite with a positive depth loss: "
+                 f"{losses}")
+    for name, state in init.items():
+        now = getattr(model, name).state_dict()
+        if all(torch.equal(v, now[k].cpu()) for k, v in state.items()
+               if v.is_floating_point()):
+            fail(f"group training left the {name} network as it was "
+                 f"initialised")
+    want = 1 + p0.n_alpha + TRAIN_POSES * p0.n_interpolation_steps
+    if len(n_frames) != GROUP or any(v != [want, want]
+                                     for v in n_frames.values()):
+        fail(f"frames per scene and trajectory {n_frames}, not {want}")
+    n_group = sum(v for (_, _, kind), v in rec.steps.items()
+                  if kind == "scone_group")
+    n_replay = sum(v for (_, phase, kind), v in rec.steps.items()
+                   if kind == "scone" and phase == "scone_replay")
+    if (n_group != 2 * TRAIN_POSES
+            or rec.count(0, "depth_step", "depth") != TRAIN_POSES
+            or n_replay != TRAIN_POSES * GROUP * p1.n_memory_scene_loops):
+        fail(f"not one depth and one SCONE step per group pose, or SCONE "
+             f"replay not per scene: {steps}")
+    replay = rec.depth_batches.get((1, "depth_replay"), [])
+    if (len(replay) != TRAIN_POSES * p1.n_memory_loops
+            or any(b != GROUP * p1.n_memory_samples for b in replay)):
+        fail(f"depth replay batches {replay}, not {p1.n_memory_loops} a "
+             f"pose of {GROUP} x {p1.n_memory_samples}")
+    for name in TRAIN_KERNELS:
+        if counts[name] <= 0:
+            fail(f"group training never launched the {name} kernel")
+    if counts["sh_visibility_backward"] != GROUP * n_group + n_replay:
+        fail(f"{counts['sh_visibility_backward']} launches of the B3 "
+             f"backward kernel for {n_group} group SCONE steps of {GROUP} "
+             f"scenes and {n_replay} replay steps")
+
+    gen = make_generator(torch.device("cuda"), SEED + 4)
+    t0 = time.perf_counter()
+    errs = hold_group_scone_step(p1, model, *rec.group_call, gen)
+    print(f"[train group] group SCONE step (n_cells_active 5), card against "
+          f"CPU: {errs} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return counts
+
+
+class PhaseTimes(StepRecorder):
+    """A StepRecorder that also keeps every phase boundary's CUDA event in
+    order, across trajectories and scenes."""
+
+    def __init__(self):
+        super().__init__()
+        self.order = []
+
+    def on_phase(self, epoch, pose_i, name):
+        super().on_phase(epoch, pose_i, name)
+        self.order.append((epoch, name, self.events[(epoch, pose_i, name)]))
+
+    def totals(self):
+        """{(epoch, phase): ms} summed over poses and scenes (a group's
+        per-scene phases under their common name), and {(epoch, phase):
+        ms of memory reads}."""
+        torch.cuda.synchronize()
+        ms, reads = {}, {}
+        for (e, a, ev0), (_, _, ev1) in zip(self.order, self.order[1:]):
+            if a != "done":
+                key = (e, a.split("/")[0])
+                ms[key] = ms.get(key, 0.0) + ev0.elapsed_time(ev1)
+        for (e, _, phase), sec in self.reads.items():
+            key = (e, phase.split("/")[0])
+            reads[key] = reads.get(key, 0.0) + 1e3 * sec
+        return ms, reads
+
+
+GROUP_TIME_SCENES = 4
+GROUP_TIME_SUITE_POSES = 10
+
+
+def phase_group_times():
+    """Scene-group training's cost on the card at groups 1, 2 and 4,
+    without holds: the suite's training config (synthetic_suite
+    train-config: eval_params widths, perfect depth, the carving field)
+    on the suite's first GROUP_TIME_SCENES scenes, GROUP_TIME_SUITE_POSES
+    poses each, the remap at the last saving every depth; and the default
+    training config (train_params) on synth_00..synth_03 subdivided
+    SCENE_LEVELS times, TRAIN_POSES poses, a remap at TRAIN_REMAP. Each
+    group size: an epoch, then a resumed one with replay. Prints, per
+    configuration, group and epoch, the ms per scene-pose of each phase
+    (between CUDA events), of it the memory reads (host time), the seconds
+    per scene-pose and the peak device memory; group 4, if its run runs
+    out of device memory, is reported as not fitting (an OOM at groups 1
+    and 2 fails the run)."""
+    dev = resolve_device("cuda")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gtimes_",
+                                     dir=_work_dir()) as tmp:
+        suite = generate_suite(os.path.join(tmp, "suite"))
+        scenes = group_suite(os.path.join(tmp, "scenes"), SCENE_LEVELS,
+                             GROUP_TIME_SCENES)
+        configs = []
+        for g in (1, 2, 4):
+            p = suite_training_params(suite)
+            # The remap (the config's at pose 95 of 100) at the cut
+            # trajectory's last pose, saving every frame's depth (the
+            # config's every fourth leaves 5, fewer than the 7 that 2 SCONE
+            # replay loops of 4 need), so that epoch 1 replays as the
+            # config's epochs do.
+            p.update(dict(n_poses_in_trajectory=GROUP_TIME_SUITE_POSES,
+                          remap_every_n_poses=GROUP_TIME_SUITE_POSES - 1,
+                          save_depth_every_n_frame=1))
+            configs.append(("suite train-config", g, p))
+        for g in (1, 2, 4):
+            configs.append(("default training config", g,
+                            train_params(scenes, 1)))
+        for label, g, p in configs:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            run = os.path.join(tmp, f"run_{len(os.listdir(tmp))}")
+            rec = PhaseTimes()
+            poses = p.n_poses_in_trajectory
+            try:
+                with rec:
+                    for epoch in (0, 1):
+                        p.update(dict(n_parallel_scenes=g, epochs=epoch + 1,
+                                      start_from_scratch=epoch == 0))
+                        run_training(
+                            p, weights_dir=os.path.join(run, "w"),
+                            memory_root=os.path.join(run, "mem"),
+                            max_scenes_per_epoch=GROUP_TIME_SCENES,
+                            device=dev, verbose=False,
+                            on_phase=rec.on_phase)
+            except torch.cuda.OutOfMemoryError as err:
+                # Only group 4 may not fit; groups 1 and 2 must.
+                if g < 4:
+                    raise
+                print(f"[group times] {label}, group {g}: does not fit on "
+                      f"the card ({str(err).splitlines()[0]})", flush=True)
+                continue
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            ms, reads = rec.totals()
+            n = GROUP_TIME_SCENES * poses
+            for epoch in (0, 1):
+                phases = {a: round(v / n, 2) for (e, a), v in ms.items()
+                          if e == epoch}
+                read = {a: round(v / n, 2) for (e, a), v in reads.items()
+                        if e == epoch}
+                print(f"[group times] {label}, group {g}, epoch {epoch} "
+                      f"({'with' if epoch else 'no'} replay): "
+                      f"{sum(phases.values()) / 1e3:.4f} s per scene-pose "
+                      f"({GROUP_TIME_SCENES} scenes x {poses} poses); ms per "
+                      f"scene-pose by phase {phases}; of it memory reads "
+                      f"{read}; peak {peak:.2f} GiB", flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+
+
+def hold_group_scone_step(params, model, rt, members, kw, gen,
+                          n_cells_active=5):
+    """One group SCONE step from one state in each of RUNS: ``members`` are
+    a recorded parallel_scone_train_step's scenes; each scene's cell noise
+    and Monte-Carlo sample (points drawn among its occupied ones) are
+    drawn once and given to every run. The card's mean losses within rtol
+    1e-3 of the CPU's, its gradients of SconeOcc and SconeVis as close to
+    the float64 ones as fp32_errors asks (hold_scone_step's rule), and
+    one launch of the B3 backward kernel per scene. Returns the errors."""
+    params = Params(dict(params.to_dict(), occ_curriculum_max_cells=min(
+        n_cells_active, rt.occ_curriculum_max_cells)))
+    noise, sample = [], []
+    for x in members:
+        _, _, occ, valid = x.field
+        pool = torch.nonzero((occ[:, 0] > rt.coverage_gain.min_occ)
+                             & valid)[:, 0]
+        noise.append(torch.rand(x.cfg.n_cells, device=gen.device,
+                                generator=gen))
+        sample.append(pool[torch.randint(
+            len(pool), (x.visited_cams.R.shape[0], rt.coverage_gain.seq_len),
+            device=gen.device, generator=gen)])
+    pns = params.get("prediction_neighborhood_size", 3.0)
+
+    def step(dev, dt):
+        m = MacaronsModel(net_copy(model.occ, dev, dt),
+                          net_copy(model.vis, dev, dt), None)
+        r = MacaronsRuntime(params, m, device=dev)
+        # Each scene's cell tables in the run's type.
+        r.bind_scene = lambda cfg, table: setattr(r, "_tables", _to(
+            scene_runtime.device_cell_tables(cfg, table, pns, dev), dev, dt))
+        opts = create_optimizers(params, m)
+        before = shv.sh_visibility_backward.launches
+        losses = r.parallel_scone_train_step(
+            opts["scone"], [_to(x, dev, dt) for x in members],
+            n_cells_active=n_cells_active,
+            cell_noise=[n.to(dev) for n in noise],
+            sample_idx=[i.to(dev) for i in sample])
+        if (dev == "cuda" and shv.sh_visibility_backward.launches
+                != before + len(members)):
+            fail("the group SCONE step on the card did not launch the B3 "
+                 "backward kernel once per scene")
+        return {"losses": [float(v) for v in losses[1:]],
+                "occ": grads_of(m.occ), "vis": grads_of(m.vis)}
+
+    out = {(dev, dt): in_dtype(dt, lambda: step(dev, dt)) for dev, dt in RUNS}
+    card, cpu = out[RUNS[0]]["losses"], out[RUNS[1]]["losses"]
+    errs = {"occ_loss": cpu[0], "cov_loss": cpu[1],
+            "loss_rel": max(abs(a - b) / max(abs(b), 1e-30)
+                            for a, b in zip(card, cpu))}
+    if not (all(np.isfinite(card)) and cpu[0] > 0 and cpu[1] > 0
+            and errs["loss_rel"] <= 1e-3):
+        fail(f"the group SCONE step on the card and on the CPU differ: "
+             f"{errs}")
+    errs.update(fp32_errors(out, ["occ", "vis"]))
+    return errs
 
 
 def _to(x, dev, dtype=None):
@@ -2995,13 +3389,25 @@ def main():
         backward["launches"] = train["counts"]["sh_visibility_backward"]
         # The SCONE step's forward, one launch per step as its backward.
         step = (train["n_cams"], 1, train["seq_len"])
-        rows.append(kernel_row(gen, launches_at(train["counts"], step,
+        scone_row = kernel_row(gen, launches_at(train["counts"], step,
                                                 backward["launches"]),
-                               worst, step, "SCONE step"))
-        rows.append(backward)
+                               worst, step, "SCONE step")
+        rows += [scone_row, backward]
         phase_depth_pretrain(train["frames_dirs"], train.pop("model"))
     finally:
         shutil.rmtree(keep)
+    # The group phase's launches of the train path's kernels, beside the
+    # rows measured above at the same shapes.
+    group = phase_train_group()
+    fused = next(r for r in rows if r["name"] == "rasterize_tiled")
+    rows += [
+        dict(fused, name=f"rasterize_tiled (train group {GROUP})",
+             launches=group["rasterize_tiled"]),
+        dict(scone_row, name=f"sh_visibility (SCONE step, group {GROUP}, "
+             f"{'x'.join(map(str, step))})",
+             launches=launches_at(group, step)),
+        dict(backward, name=f"sh_visibility_backward (train group {GROUP})",
+             launches=group["sh_visibility_backward"])]
     rows.append(phase_scene_data())
     lane = phase_scone_pretrain()
     rows += lane["rows"]
@@ -3023,11 +3429,17 @@ if __name__ == "__main__":
     parser.add_argument("--depth-holds", type=int, default=0, metavar="N",
                         help="run only the depth hold, N times from fresh "
                         "draws (phase_depth_holds)")
+    parser.add_argument("--group-times", action="store_true",
+                        help="run only the timing of scene groups 1, 2 and "
+                        "4 (phase_group_times)")
     args = parser.parse_args()
-    if args.depth_holds:
+    if args.depth_holds or args.group_times:
         if not torch.cuda.is_available():
             fail("CUDA is not available")
         phase_build()
-        phase_depth_holds(args.depth_holds)
+        if args.depth_holds:
+            phase_depth_holds(args.depth_holds)
+        else:
+            phase_group_times()
     else:
         main()

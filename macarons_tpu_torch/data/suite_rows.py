@@ -11,13 +11,18 @@ Usage:
 ``--run`` evaluates each row through the suite's CLI (``synthetic_suite
 eval``) on the card at the committed protocol, 100 poses x 5 starts:
 carving on the 10 scenes, nbv on scenes 0-4 with the committed SconeVis
-weights, the trained row on scenes 0-4 from ``epoch_2`` of the training
-run. The committed random row is two runs, scenes 0-4 and scenes 5-9, each
-with its own numpy generator, and is run so. A row's runs go side by side,
+weights, the trained row on scenes 0-4 with the SconeVis of the newest
+epoch of the training run (``<out-dir>/weights/epoch_<e>_vis.msgpack``;
+under ``eval_params`` only SconeVis reaches a decision). The committed
+random row is two runs, scenes 0-4 and scenes 5-9, each with its own numpy
+generator, and is run so. A row's runs go side by side,
 one process each sharing the card (the seconds per pose each writes are
 taken under that load); the rows go one after another. ``train`` first
 writes the suite's training config (``synthetic_suite train-config``) and
-trains on it (``macarons_tpu_torch.train``). Each run writes
+trains on it (``macarons_tpu_torch.train``), one epoch per process, each
+resuming the last, and writes each epoch's SconeVis as a Flax variables
+msgpack (``epoch_<e>_vis.msgpack``, which the JAX package reads too) as
+soon as the epoch ends. Each run writes
 ``<out-dir>/<run>_<seed>.json`` and ``<out-dir>/logs/<run>_<seed>.log``;
 ``rows.json`` then holds each row's mean and standard deviation over the
 seeds beside the committed JAX row, the hold (the JAX value within the mean
@@ -45,7 +50,7 @@ FIRST_RUN = [f"synth_{i:02d}" for i in range(5)]
 SECOND_RUN = [f"synth_{i:02d}" for i in range(5, 10)]
 METRICS = ("mean_final_coverage", "mean_auc", "mean_auc_30")
 HOLD_FLOOR = 0.005
-TRAINED = "weights/epoch_2_synth"
+TRAINED_VIS = re.compile(r"epoch_(\d+)_vis\.msgpack")
 # Each row's runs: (run name, policy, scenes or None for all). The
 # committed random row's walks of scenes 5-9 are those of a run that
 # starts at synth_05, so "random_b" is that second run.
@@ -70,8 +75,38 @@ def eval_cmd(run, policy, scenes, seed, out_dir):
     if run == "nbv":
         cmd += ["--vis-weights", SUITE_VIS_INIT + ".msgpack"]
     if run == "trained":
-        cmd += ["--weights", os.path.join(out_dir, TRAINED + ".pt")]
+        cmd += ["--vis-weights", trained_vis(out_dir)]
     return cmd
+
+
+def trained_vis(out_dir):
+    """The newest epoch's SconeVis msgpack under ``<out_dir>/weights``."""
+    found = {int(m.group(1)): m.group(0) for m in (
+        TRAINED_VIS.fullmatch(f) for f in os.listdir(
+            os.path.join(out_dir, "weights"))) if m}
+    if not found:
+        raise FileNotFoundError(f"no epoch_<e>_vis.msgpack under "
+                                f"{out_dir}/weights")
+    return os.path.join(out_dir, "weights", found[max(found)])
+
+
+def write_epoch_vis(config, out_dir, epoch):
+    """``<out_dir>/weights/epoch_<epoch>_vis.msgpack``: the SconeVis of the
+    training run's ``epoch_<epoch>`` checkpoint as Flax variables."""
+    import torch
+
+    from ..config import Params
+    from ..models.macarons import create_macarons_model
+    from ..utils.convert import torch_to_flax, write_msgpack
+
+    wdir = os.path.join(out_dir, "weights")
+    name = config.get("macarons_model_name", "macarons")
+    vis = create_macarons_model(Params(config), "cpu").vis
+    vis.load_state_dict(torch.load(
+        os.path.join(wdir, f"epoch_{epoch}_{name}.pt"), map_location="cpu",
+        weights_only=True)["vis"])
+    return write_msgpack(os.path.join(wdir, f"epoch_{epoch}_vis"),
+                         torch_to_flax(vis))
 
 
 def run_logged(cmds, logs):
@@ -99,10 +134,20 @@ def run(rows, out_dir):
         run_logged({"train_config": [
             sys.executable, "-m", "macarons_tpu_torch.data.synthetic_suite",
             "train-config", SUITE, "--out", cfg]}, logs)
-        run_logged({"train": [
-            sys.executable, "-m", "macarons_tpu_torch.train", "-c", cfg,
-            "--weights-dir", os.path.join(out_dir, "weights"),
-            "--memory-root", os.path.join(out_dir, "_train_memory")]}, logs)
+        with open(cfg) as f:
+            config = json.load(f)
+        for epoch in range(config["epochs"]):
+            epoch_cfg = os.path.join(out_dir, f"train_config_{epoch}.json")
+            with open(epoch_cfg, "w") as f:
+                json.dump(dict(config, epochs=epoch + 1,
+                               start_from_scratch=epoch == 0), f, indent=1)
+            run_logged({f"train_{epoch}": [
+                sys.executable, "-m", "macarons_tpu_torch.train", "-c",
+                epoch_cfg, "--weights-dir", os.path.join(out_dir, "weights"),
+                "--memory-root", os.path.join(out_dir, "_train_memory")]},
+                logs)
+            print(f"wrote {write_epoch_vis(config, out_dir, epoch)}",
+                  flush=True)
     for row in rows:
         if row != "train":
             run_logged({f"{name}_{seed}": eval_cmd(name, policy, scenes,
@@ -182,15 +227,15 @@ def hold(values, jax_value):
 
 
 def vis_change(path):
-    """How far the SconeVis of a training checkpoint lies from its start,
+    """How far a trained SconeVis msgpack lies from its start,
     SUITE_VIS_INIT: the largest |w - w0| and ||w - w0|| / ||w0||."""
     import torch
 
     from ..utils.convert import flax_to_torch, read_msgpack
 
     init = flax_to_torch(read_msgpack(SUITE_VIS_INIT))
-    vis = torch.load(path, map_location="cpu", weights_only=True)["vis"]
-    d = torch.cat([(vis[k].float() - w).reshape(-1) for k, w in init.items()])
+    vis = flax_to_torch(read_msgpack(path[:-len(".msgpack")]))
+    d = torch.cat([(vis[k] - w).reshape(-1) for k, w in init.items()])
     w0 = torch.cat([w.reshape(-1) for w in init.values()])
     return {"checkpoint": os.path.basename(path),
             "max_abs": float(d.abs().max()),
@@ -234,16 +279,16 @@ def summarize(out_dir):
                     out["pose_matches"][f"{name}_{s}.json"] = dict(zip(
                         ("matching", "of", "first_mismatch"),
                         pose_matches(trajectories(d), walks)))
-    ckpts = glob.glob(os.path.join(out_dir, "weights", "*_synth.pt"))
-    if ckpts:
-        out["vis_change"] = vis_change(max(ckpts, key=os.path.getmtime))
-    train_log = os.path.join(out_dir, "logs", "train.log")
-    if os.path.exists(train_log):
-        with open(train_log) as f:
-            out["train_epochs"] = [
-                {"epoch": int(m.group(1)), "seconds": float(m.group(2)),
-                 "losses": m.group(3)} for m in re.finditer(
-                    r"epoch (\d+) done in ([\d.]+)s: (\{.*\})", f.read())]
+    if glob.glob(os.path.join(out_dir, "weights", "epoch_*_vis.msgpack")):
+        out["vis_change"] = vis_change(trained_vis(out_dir))
+    epochs = []
+    for log in sorted(glob.glob(os.path.join(out_dir, "logs", "train*.log"))):
+        with open(log) as f:
+            epochs += [{"epoch": int(m.group(1)), "seconds": float(m.group(2)),
+                        "losses": m.group(3)} for m in re.finditer(
+                r"epoch (\d+) done in ([\d.]+)s: (\{.*\})", f.read())]
+    if epochs:
+        out["train_epochs"] = sorted(epochs, key=lambda e: e["epoch"])
     with open(os.path.join(out_dir, "rows.json"), "w") as f:
         json.dump(out, f, indent=1)
     return out

@@ -1,5 +1,6 @@
 """MACARONS online self-supervised training (port of
-macarons_tpu/trainers/train_macarons.py, its disk-memory single-scene path).
+macarons_tpu/trainers/train_macarons.py, its disk-memory path: one scene at
+a time, or scene groups on one device).
 
 Each trajectory alternates, per pose:
   1. the decision: depth inference on the newest frames, mapping and
@@ -12,7 +13,10 @@ Each trajectory alternates, per pose:
      with the predictions on the pre-window state and the occupancy target
      from the post-carve field;
 then depth replay and SCONE replay from the disk memory and, at one pose, a
-remap. ``run_training`` adds the epochs: resume, the freeze and unfreeze
+remap. A scene group (``n_parallel_scenes`` > 1, ``run_trajectories_parallel``)
+takes each scene's decision and capture in turn, one depth step over the
+group's windows and one SCONE step on the mean of the scenes' losses.
+``run_training`` adds the epochs: resume, the freeze and unfreeze
 transition, per-epoch random generators, validation, the four checkpoint
 flavours and the loss-peak rollback.
 
@@ -55,6 +59,7 @@ from ..ops.projection import (
 )
 from ..ops.sampling import random_subsample_mask, sample_points_on_mesh_surface
 from ..parallel.nbv import pad_candidates
+from ..parallel.scene_dp import SceneSupervision, group_scone_step
 from ..scene import grid as G
 from ..scene import proxy as P
 from ..scene import runtime as R
@@ -229,6 +234,7 @@ class MacaronsRuntime:
                                   self.occ_curriculum_max_cells),
             **occ_kw)
         self._tables = None
+        self._bound = None
         if cfg is not None and table is not None:
             self.bind_scene(cfg, table)
         self.coverage_gain = R.CoverageGain(
@@ -256,6 +262,11 @@ class MacaronsRuntime:
         self.scone_opt_steps = 0
 
     def bind_scene(self, cfg: G.GridConfig, table: R.CellIndexTable):
+        """Point the occupancy fields at one scene's cell tables; a no-op
+        when that scene's table is bound already."""
+        if table is self._bound:
+            return
+        self._bound = table
         self._tables = R.device_cell_tables(
             cfg, table, self.params.get("prediction_neighborhood_size", 3.0),
             self.device)
@@ -399,54 +410,22 @@ class MacaronsRuntime:
         opt.step()
         return loss.detach(), occ_loss.detach(), cov_loss.detach()
 
-    def scone_supervise_step(self, opt, scene: SceneState, R0, T0, depth,
-                             mask, err_mask, batch_R, batch_T, field, gen,
-                             box_diag: float, surface_distance: float,
-                             vs_distance: Optional[float] = None,
-                             n_cells_active: Optional[int] = None,
-                             carving_tolerance: float = 0.0,
-                             score_threshold: float = 1.0,
-                             train: bool = True, cell_noise=None,
-                             sample_idx=None):
-        """The supervision phase of a pose: the close-to-surface mask on the
-        pre-window state, the window's mapping and carving (its frame 0
-        arrives covered), the pseudo-GT coverage gains of the window, and,
-        with ``train``, one SCONE step whose predictions run on the
-        pre-window state and whose occupancy target is the post-carve
-        field. Updates ``scene``. Returns (loss, occ_loss, cov_loss), zeros
-        without ``train``."""
-        params = self.params
-        if vs_distance is None:
-            vs_distance = surface_distance
-        pre_proxy, pre_surface = scene.proxy, scene.surface_scene
-        pre_oof = pre_proxy.out_of_field[:, 0] < 1.0
-        close = close_mask(self, pre_proxy.points, depth, mask, batch_R,
-                           batch_T, surface_distance)
-        fill = torch.zeros((depth.shape[0],), device=depth.device)
-        fill[0] = 1.0
-        pcs, valids = mapping_update(
-            self, scene, depth, mask, err_mask, batch_R, batch_T, gen,
-            carving_tolerance=carving_tolerance,
-            score_threshold=score_threshold, fill_feats=fill,
-            surface_distance=vs_distance)
-        sup_gains, scene.surface_scene = G.window_coverage_gains(
-            scene.cfg, scene.surface_scene, pcs, valids,
-            surface_epsilon=params.get("surface_epsilon"))
-        close = close & pre_oof
-        if not train:
-            zero = torch.zeros((), device=depth.device)
-            return zero, zero, zero
-        cams = FoVCamera.create(batch_R, batch_T, zfar=self.dcfg.zfar)
-        return self.scone_train_step(
-            opt, pre_proxy, pre_surface,
-            FoVCamera.create(R0, T0, zfar=self.dcfg.zfar), close, cams,
-            cams.camera_center(), sup_gains, field,
-            n_supervision=params.get(
+    def parallel_scone_train_step(self, opt, group: List[SceneSupervision],
+                                  n_cells_active: Optional[int] = None,
+                                  gen=None, cell_noise=None,
+                                  sample_idx=None):
+        """One SCONE optimizer step on the mean of a scene group's losses
+        (``parallel.scene_dp.group_scone_step``), counted as one step of
+        the warm-up schedule. Returns (loss, occ_loss, cov_loss), each the
+        group's mean."""
+        self._next_scone_lr(opt)
+        if n_cells_active is None:
+            n_cells_active = self.occ_curriculum_max_cells
+        return group_scone_step(
+            self, opt, group, self.params.get(
                 "n_proxy_point_for_occupancy_supervision", 6000),
-            box_diag=box_diag, cell_resolution=scene.cfg.resolution,
-            n_cells_active=n_cells_active,
-            sup_occ=scene.proxy.supervision_occ, gen=gen,
-            cell_noise=cell_noise, sample_idx=sample_idx)
+            n_cells_active, gen=gen, cell_noise=cell_noise,
+            sample_idx=sample_idx)
 
 
 def capture_and_save(scene: SceneState, memory: Memory, memory_path: str,
@@ -547,6 +526,43 @@ def close_mask(rt: MacaronsRuntime, points, depth, mask, R_b, T_b,
         close = torch.where(fov, torch.abs(sd[:, 0]) < surface_distance,
                             close)
     return close
+
+
+def supervision_signal(rt: MacaronsRuntime, scene: SceneState, depth, mask,
+                       err_mask, batch_R, batch_T, gen: torch.Generator,
+                       surface_distance: float,
+                       vs_distance: Optional[float] = None,
+                       carving_tolerance: float = 0.0,
+                       score_threshold: float = 1.0) -> SceneSupervision:
+    """A supervision window's signal for the SCONE step: the
+    close-to-surface mask (``surface_distance``) on the pre-window state,
+    the window's mapping and carving (its frame 0 arrives covered; the
+    view-state surface test at ``vs_distance``, default
+    ``surface_distance``), and the pseudo-GT coverage gains of the window.
+    Updates ``scene``; returns the step's inputs (the pre-window proxy and
+    surface, the post-carve occupancy target) without the prediction
+    camera and the scene field."""
+    if vs_distance is None:
+        vs_distance = surface_distance
+    pre_proxy, pre_surface = scene.proxy, scene.surface_scene
+    pre_oof = pre_proxy.out_of_field[:, 0] < 1.0
+    close = close_mask(rt, pre_proxy.points, depth, mask, batch_R, batch_T,
+                       surface_distance)
+    fill = torch.zeros((depth.shape[0],), device=depth.device)
+    fill[0] = 1.0
+    pcs, valids = mapping_update(
+        rt, scene, depth, mask, err_mask, batch_R, batch_T, gen,
+        carving_tolerance=carving_tolerance, score_threshold=score_threshold,
+        fill_feats=fill, surface_distance=vs_distance)
+    sup_gains, scene.surface_scene = G.window_coverage_gains(
+        scene.cfg, scene.surface_scene, pcs, valids,
+        surface_epsilon=rt.params.get("surface_epsilon"))
+    cams = FoVCamera.create(batch_R, batch_T, zfar=rt.dcfg.zfar)
+    return SceneSupervision(
+        cfg=scene.cfg, cell_table=scene.cell_table, proxy=pre_proxy,
+        surface=pre_surface, close_mask=close & pre_oof, visited_cams=cams,
+        visited_X=cams.camera_center(), supervision_gains=sup_gains,
+        sup_occ=scene.proxy.supervision_occ)
 
 
 # ---------------------------------------------------------------------------
@@ -666,63 +682,102 @@ def decide(rt: MacaronsRuntime, scene: SceneState, gen: torch.Generator,
     return nbv_choice(rt, scene, fld, valid_nbrs, gen), fld
 
 
-def nbv_loop_step(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
-                  memory_path: str, opts: Dict, gen: torch.Generator,
-                  freeze_scone: bool = False, warmup_phase: bool = False,
-                  online_learning: bool = True,
-                  surface_distance: Optional[float] = None,
-                  n_cells_active: Optional[int] = None,
-                  on_phase: Optional[Callable] = None, pose_i: int = 0):
-    """One NBV iteration: decide, move and capture, one depth step on the
-    supervision window, the SCONE supervision. ``on_phase(pose_i, name)``
-    is called before "decision", "capture", "depth_step" and "scone_step".
-    Returns the losses {"depth", "occ", "cov"} as tensors."""
+def group_supervision_batch(rt: MacaronsRuntime, scenes: List[SceneState]):
+    """The supervision windows of a scene group as one depth batch: each
+    scene's window is built from its own frames, so alpha frames never
+    cross scenes, and the windows are concatenated in scene order.
+    Returns (batch, alpha)."""
+    n_sup = rt.n_interpolation_steps + rt.dcfg.n_alpha_for_supervision
+    per = [create_batch_for_depth_model(
+        rt.dcfg, window_frames(rt, scene, n_sup), "supervision",
+        device=rt.device) for scene in scenes]
+    return ({k: torch.cat([b[k] for b, _ in per]) for k in per[0][0]},
+            {k: torch.cat([a[k] for _, a in per]) for k in per[0][1]})
+
+
+def nbv_parallel_step(rt: MacaronsRuntime, scenes: List[SceneState],
+                      memory: Memory, memory_paths: List[str], opts: Dict,
+                      gen: torch.Generator, freeze_scone: bool = False,
+                      warmup_phase: bool = False,
+                      online_learning: bool = True,
+                      surface_distances: Optional[List[float]] = None,
+                      n_cells_active: Optional[int] = None,
+                      on_phase: Optional[Callable] = None, pose_i: int = 0):
+    """One NBV iteration of a scene group (a single scene is a group of
+    one): for each scene in turn the decision, the move and its capture;
+    one depth step over the group's supervision windows, each built from
+    its own scene's frames and concatenated in scene order (BatchNorm takes
+    its statistics over the whole batch); each scene's supervision signal
+    on its slice; and one SCONE step on the mean of the scenes' losses.
+    ``on_phase(pose_i, name)`` is called before "decision/<s>" and
+    "capture/<s>" of scene s, "depth_step", "supervision" and
+    "scone_step"; a group of one calls them "decision", "capture",
+    "depth_step" and "scone_step", its supervision counted to its SCONE
+    step. Returns the losses {"depth", "occ", "cov"} as tensors, occ and
+    cov the group's means."""
     params = rt.params
-    cam = scene.camera
-    if surface_distance is None:
-        surface_distance = 3.0 * scene.proxy_distance
-    cam.fov_camera_0 = cam.fov_camera
-    R0, T0 = cam.fov_camera_0.R, cam.fov_camera_0.T
-    box_diag = float(np.linalg.norm(np.asarray(scene.cfg.x_max)
-                                    - np.asarray(scene.cfg.x_min)))
+    S = len(scenes)
 
-    _phase(on_phase, pose_i, "decision")
-    next_idx, fld = decide(rt, scene, gen, warmup_phase)
+    def tag(name, s):
+        return name if S == 1 else f"{name}/{s}"
 
-    _phase(on_phase, pose_i, "capture")
-    images, depth_c, mask_c, batch_cam = move_and_capture(
-        scene, memory, memory_path, next_idx)
-    push_frames(rt, scene, images, depth_c, mask_c, batch_cam.R, batch_cam.T)
+    fields, pred_cams = [], []
+    for s, (scene, mp) in enumerate(zip(scenes, memory_paths)):
+        rt.bind_scene(scene.cfg, scene.cell_table)
+        cam = scene.camera
+        cam.fov_camera_0 = cam.fov_camera
+        pred_cams.append(FoVCamera.create(cam.fov_camera_0.R,
+                                          cam.fov_camera_0.T,
+                                          zfar=rt.dcfg.zfar))
+        _phase(on_phase, pose_i, tag("decision", s))
+        next_idx, fld = decide(rt, scene, gen, warmup_phase)
+        fields.append(fld)
+        _phase(on_phase, pose_i, tag("capture", s))
+        images, depth_c, mask_c, batch_cam = move_and_capture(
+            scene, memory, mp, next_idx)
+        push_frames(rt, scene, images, depth_c, mask_c, batch_cam.R,
+                    batch_cam.T)
 
     _phase(on_phase, pose_i, "depth_step")
-    batch, alpha = create_batch_for_depth_model(
-        rt.dcfg, window_frames(
-            rt, scene,
-            rt.n_interpolation_steps + rt.dcfg.n_alpha_for_supervision),
-        "supervision", device=rt.device)
+    batch, alpha = group_supervision_batch(rt, scenes)
     depth_loss_v, depth, mask, err_mask = rt.depth_train_step(
         opts.get("depth"), batch, alpha, gen=gen, online=online_learning)
+    F = depth.shape[0] // S
 
-    _phase(on_phase, pose_i, "scone_step")
-    _, occ_loss, cov_loss = rt.scone_supervise_step(
-        opts["scone"], scene, R0, T0, depth, mask, err_mask, batch["R"],
-        batch["T"], fld, gen, box_diag=box_diag,
-        surface_distance=surface_distance,
-        vs_distance=3.0 * scene.proxy_distance,
-        n_cells_active=n_cells_active,
-        carving_tolerance=params.get("carving_tolerance", 0.0),
-        score_threshold=params.get("score_threshold", 1.0),
-        train=online_learning and not freeze_scone)
+    _phase(on_phase, pose_i, "supervision" if S > 1 else "scone_step")
+    group = []
+    for s, scene in enumerate(scenes):
+        sl = slice(s * F, (s + 1) * F)
+        sup = supervision_signal(
+            rt, scene, depth[sl], mask[sl], err_mask[sl], batch["R"][sl],
+            batch["T"][sl], gen,
+            surface_distances[s] if surface_distances
+            else 3.0 * scene.proxy_distance,
+            vs_distance=3.0 * scene.proxy_distance,
+            carving_tolerance=params.get("carving_tolerance", 0.0),
+            score_threshold=params.get("score_threshold", 1.0))
+        sup.prediction_camera, sup.field = pred_cams[s], fields[s]
+        group.append(sup)
+
+    if S > 1:
+        _phase(on_phase, pose_i, "scone_step")
+    zero = torch.zeros((), device=rt.device)
+    occ_loss = cov_loss = zero
+    if online_learning and not freeze_scone:
+        _, occ_loss, cov_loss = rt.parallel_scone_train_step(
+            opts["scone"], group, n_cells_active=n_cells_active, gen=gen)
     return {"depth": depth_loss_v, "occ": occ_loss, "cov": cov_loss}
 
 
 def memory_depth_loop(rt: MacaronsRuntime, memory: Memory, opts: Dict,
-                      gen: torch.Generator, rs: np.random.Generator):
+                      gen: torch.Generator, rs: np.random.Generator,
+                      scale: int = 1):
     """Depth replay: n_memory_samples frames drawn independently over every
     scene memory and every past trajectory, each with its alpha context,
-    trained as one batch in one step. Returns the loss, or None when
-    nothing is replayable."""
-    n_samples = rt.params.get("n_memory_samples", 4)
+    trained as one batch in one step. A group of ``scale`` scenes draws
+    ``scale`` times the frames, as the reference's one replay batch per
+    rank. Returns the loss, or None when nothing is replayable."""
+    n_samples = rt.params.get("n_memory_samples", 4) * max(scale, 1)
     n_context = rt.dcfg.n_alpha + 1 + (
         1 if rt.dcfg.use_future_frame_for_supervision else 0)
     got = memory.sample_depth_replay(
@@ -818,33 +873,25 @@ def memory_scone_loop(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
         depth, mask, err, R_b, T_b = load_stack(window)
         ci = int(rs.integers(0, max(hi_ci, 1)))
 
-        pre_proxy, pre_surface = replay.proxy, replay.surface_scene
-        pre_oof = pre_proxy.out_of_field[:, 0] < 1.0
         prediction_camera = FoVCamera.create(R_b[0:1], T_b[0:1],
                                              zfar=rt.dcfg.zfar)
         proba, pmask, harmonics = rt.occupancy_field(
-            pre_proxy, pre_surface, prediction_camera)
-        fld = R.assemble_scene_field(pre_proxy, proba, pmask, harmonics)
-        close = close_mask(rt, pre_proxy.points, depth, mask, R_b, T_b,
-                           float(curr_dists[ci])) & pre_oof
-        fill = torch.zeros((n_sup,), device=dev)
-        fill[0] = 1.0
-        pcs, valids = mapping_update(rt, replay, depth, mask, err, R_b, T_b,
-                                     gen, fill_feats=fill, **carving)
-        sup_gains, replay.surface_scene = G.window_coverage_gains(
-            scene.cfg, replay.surface_scene, pcs, valids,
-            surface_epsilon=params.get("surface_epsilon"))
-        sup_occ = (replay.proxy.supervision_occ
-                   if params.get("memory_supervise_with_online_field", False)
-                   else pseudo_gt)
-        visited = FoVCamera.create(R_b, T_b, zfar=rt.dcfg.zfar)
+            replay.proxy, replay.surface_scene, prediction_camera)
+        fld = R.assemble_scene_field(replay.proxy, proba, pmask, harmonics)
+        sup = supervision_signal(
+            rt, replay, depth, mask, err, R_b, T_b, gen,
+            float(curr_dists[ci]), vs_distance=3.0 * scene.proxy_distance,
+            **carving)
+        if not params.get("memory_supervise_with_online_field", False):
+            sup.sup_occ = pseudo_gt
         loss = rt.scone_train_step(
-            opts["scone"], pre_proxy, pre_surface, prediction_camera, close,
-            visited, visited.camera_center(), sup_gains, fld,
-            n_supervision=params.get(
+            opts["scone"], sup.proxy, sup.surface, prediction_camera,
+            sup.close_mask, sup.visited_cams, sup.visited_X,
+            sup.supervision_gains, fld, n_supervision=params.get(
                 "n_proxy_point_for_occupancy_supervision", 6000),
             box_diag=box_diag, cell_resolution=scene.cfg.resolution,
-            n_cells_active=int(curr_cells[ci]), sup_occ=sup_occ, gen=gen)[0]
+            n_cells_active=int(curr_cells[ci]), sup_occ=sup.sup_occ,
+            gen=gen)[0]
         last_nb = window[-1]
     return loss
 
@@ -885,26 +932,37 @@ def recompute_mapping(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
 # ---------------------------------------------------------------------------
 
 
-def run_trajectory(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
-                   memory_path: str, opts: Dict, gen: torch.Generator,
-                   rs: np.random.Generator, n_poses: int,
-                   freeze_scone: bool = False, warmup_phase: bool = False,
-                   online_learning: bool = True, n_memory_loops: int = 0,
-                   remap_at: Optional[int] = None, verbose: bool = False,
-                   on_phase: Optional[Callable] = None):
-    """One trajectory of n_poses NBV steps, with depth and SCONE replay
-    after each pose and a remap at pose ``remap_at``; at its end the
-    surface and occupancy snapshots and the poses go to the memory.
-    ``on_phase(pose_i, name)`` is called at the pose's phase boundaries
-    ("decision", "capture", "depth_step", "scone_step", "depth_replay",
-    "scone_replay", "remap", "done"). Returns the per-pose losses
-    {"depth", "occ", "cov"} as floats; ``scene.coverages`` gets each
+def run_trajectories_parallel(rt: MacaronsRuntime, scenes: List[SceneState],
+                              memory: Memory, memory_paths: List[str],
+                              opts: Dict, gen: torch.Generator,
+                              rs: np.random.Generator, n_poses: int,
+                              freeze_scone: bool = False,
+                              warmup_phase: bool = False,
+                              online_learning: bool = True,
+                              n_memory_loops: int = 0,
+                              remap_at: Optional[int] = None,
+                              verbose: bool = False,
+                              on_phase: Optional[Callable] = None):
+    """One trajectory in each scene of a group (``run_trajectory`` runs a
+    group of one), in lockstep, on one device: every scene's start drawn from ``rs`` before any is primed, then per
+    pose each scene's surface refill every recompute_surface_every_n_loop
+    poses, ``nbv_parallel_step``, n_memory_loops depth replays of the
+    group's size, SCONE replay scene by scene, and the remap of each scene
+    at pose ``remap_at``; at the end each scene's snapshots and poses go to
+    the memory. ``on_phase(pose_i, name)`` is called at the group pose's
+    phase boundaries (``nbv_parallel_step``'s, then "depth_replay",
+    "scone_replay", "remap", "done"). Returns the per-pose losses (one
+    entry per group pose) as floats; each ``scene.coverages`` gets its
     pose's coverage."""
     params = rt.params
-    cam = scene.camera
-    start_trajectory(rt, scene, memory, memory_path, rs)
-    curr_dists = R.curriculum_sampling_distances(
-        max(n_poses, 2), scene.proxy_distance, scene.cfg.cell_size)
+    S = len(scenes)
+    starts = [s.camera.get_random_valid_pose(rs, s.verts_dev,
+                                             proxy_points=s.proxy.points)
+              for s in scenes]
+    for scene, mp, start in zip(scenes, memory_paths, starts):
+        start_trajectory(rt, scene, memory, mp, rs, start_idx=start)
+    curr_dists = [R.curriculum_sampling_distances(
+        max(n_poses, 2), s.proxy_distance, s.cfg.cell_size) for s in scenes]
     curr_cells = R.curriculum_sampling_cell_number(
         max(n_poses, 2), rt.occ_curriculum_min_cells,
         rt.occ_curriculum_max_cells)
@@ -913,15 +971,16 @@ def run_trajectory(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
     losses = {"depth": [], "occ": [], "cov": []}
     for pose_i in range(n_poses):
         if every > 0 and pose_i > 0 and pose_i % every == 0:
-            pts, valid = G.all_points(scene.surface_scene)
-            scene.surface_scene = G.fill_cells_progressive(
-                scene.cfg, G.empty_grid(scene.cfg, rt.device), gen, pts,
-                valid)
-        step = nbv_loop_step(
-            rt, scene, memory, memory_path, opts, gen,
+            for scene in scenes:
+                pts, valid = G.all_points(scene.surface_scene)
+                scene.surface_scene = G.fill_cells_progressive(
+                    scene.cfg, G.empty_grid(scene.cfg, rt.device), gen, pts,
+                    valid)
+        step = nbv_parallel_step(
+            rt, scenes, memory, memory_paths, opts, gen,
             freeze_scone=freeze_scone, warmup_phase=warmup_phase,
             online_learning=online_learning,
-            surface_distance=float(curr_dists[pose_i]),
+            surface_distances=[float(d[pose_i]) for d in curr_dists],
             n_cells_active=int(curr_cells[pose_i]), on_phase=on_phase,
             pose_i=pose_i)
         for k in losses:
@@ -929,32 +988,52 @@ def run_trajectory(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
 
         _phase(on_phase, pose_i, "depth_replay")
         for _ in range(n_memory_loops):
-            memory_depth_loop(rt, memory, opts, gen, rs)
+            memory_depth_loop(rt, memory, opts, gen, rs, scale=S)
         _phase(on_phase, pose_i, "scone_replay")
         if online_learning and not freeze_scone \
                 and params.get("n_memory_scene_loops", 0) > 0:
-            memory_scone_loop(rt, scene, memory, memory_path, opts, gen, rs,
-                              n_loops=params.get("n_memory_scene_loops", 0),
-                              n_replay_frames=rt.n_interpolation_steps)
+            for scene, mp in zip(scenes, memory_paths):
+                rt.bind_scene(scene.cfg, scene.cell_table)
+                memory_scone_loop(
+                    rt, scene, memory, mp, opts, gen, rs,
+                    n_loops=params.get("n_memory_scene_loops", 0),
+                    n_replay_frames=rt.n_interpolation_steps)
         _phase(on_phase, pose_i, "remap")
         if remap_at is not None and pose_i == remap_at:
-            recompute_mapping(rt, scene, memory, memory_path, gen)
-        cov, _ = G.scene_coverage(scene.cfg, scene.gt_scene,
-                                  scene.surface_scene)
-        scene.coverages.append(float(cov))
+            for scene, mp in zip(scenes, memory_paths):
+                recompute_mapping(rt, scene, memory, mp, gen)
+        for scene in scenes:
+            cov, _ = G.scene_coverage(scene.cfg, scene.gt_scene,
+                                      scene.surface_scene)
+            scene.coverages.append(float(cov))
         _phase(on_phase, pose_i, "done")
         if verbose:
             shown = {k: float(v[-1]) for k, v in losses.items()}
-            print(f"  pose {pose_i}: losses {shown} coverage "
-                  f"{scene.coverages[-1]:.4f}")
+            covs = [f"{s.coverages[-1]:.4f}" for s in scenes]
+            print(f"  pose {pose_i}: losses {shown} coverages {covs}")
 
-    memory.save_surface_scene(memory_path, scene.surface_scene)
-    memory.save_occupancy_field(memory_path, scene.proxy)
-    memory.save_poses(memory_path, memory.current_epoch,
-                      np.concatenate(cam.X_cam_history, 0),
-                      np.concatenate(cam.V_cam_history, 0),
-                      np.stack(cam.cam_idx_history, 0))
+    for scene, mp in zip(scenes, memory_paths):
+        cam = scene.camera
+        memory.save_surface_scene(mp, scene.surface_scene)
+        memory.save_occupancy_field(mp, scene.proxy)
+        memory.save_poses(mp, memory.current_epoch,
+                          np.concatenate(cam.X_cam_history, 0),
+                          np.concatenate(cam.V_cam_history, 0),
+                          np.stack(cam.cam_idx_history, 0))
     return {k: [float(v) for v in vs] for k, vs in losses.items()}
+
+
+def run_trajectory(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
+                   memory_path: str, opts: Dict, gen: torch.Generator,
+                   rs: np.random.Generator, n_poses: int, **kw):
+    """One trajectory of n_poses NBV steps in one scene: the
+    ``run_trajectories_parallel`` of a group of one, its phases named
+    "decision", "capture", "depth_step", "scone_step", "depth_replay",
+    "scone_replay", "remap" and "done". Returns the per-pose losses
+    {"depth", "occ", "cov"} as floats; ``scene.coverages`` gets each pose's
+    coverage."""
+    return run_trajectories_parallel(rt, [scene], memory, [memory_path],
+                                     opts, gen, rs, n_poses, **kw)
 
 
 def seeded_generator(device, *seeds) -> torch.Generator:
@@ -962,6 +1041,29 @@ def seeded_generator(device, *seeds) -> torch.Generator:
     seed = int(np.random.SeedSequence([int(s) for s in seeds])
                .generate_state(1, np.uint64)[0] >> 1)
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def scene_group_size(params: Params) -> int:
+    """``n_parallel_scenes``, the number of scenes trained at once. The
+    whole group runs on the one card: a pinned ``n_devices`` that does not
+    divide the group raises, as in the JAX package, and so does one above
+    1, since the multi-card modules are not ported."""
+    group = params.get("n_parallel_scenes", 1) or 1
+    pinned = params.get("n_devices")
+    if group > 1 and pinned:
+        if group % pinned != 0:
+            raise ValueError(
+                f"n_parallel_scenes={group} does not divide over the "
+                f"pinned n_devices={pinned}; the scene axis must shard "
+                f"evenly")
+        if pinned > 1:
+            raise ValueError(
+                f"n_parallel_scenes={group} over n_devices={pinned}: a "
+                f"scene group spread over several cards (the JAX "
+                f"package's parallel/mesh.py, parallel/distributed.py and "
+                f"scene_dp.shard_scene_axis) is not ported; leave "
+                f"n_devices unset or 1 to run the group on one card")
+    return group
 
 
 def run_training(params: Params, data_path: Optional[str] = None,
@@ -979,8 +1081,7 @@ def run_training(params: Params, data_path: Optional[str] = None,
     losses)."""
     dev = resolve_device(device)
     data_path = data_path or params.data_path
-    if (params.get("n_parallel_scenes", 1) or 1) > 1:
-        raise NotImplementedError("scene-parallel training is not ported yet")
+    group = scene_group_size(params)
     seed = params.get("random_seed", 42)
     torch_seed = params.get("torch_seed", 5)
     dataset = SceneDataset(data_path)
@@ -1077,7 +1178,10 @@ def run_training(params: Params, data_path: Optional[str] = None,
             scene_indices = scene_indices[:max_scenes_per_epoch]
         memory = Memory(all_paths, current_epoch=epoch,
                         n_trajectories=params.get("n_memory_trajectories", 1))
-        for si in scene_indices:
+        hook = (None if on_phase is None else
+                lambda pose_i, phase, e=epoch: on_phase(e, pose_i, phase))
+
+        def make_scene(si):
             item = dataset[int(si)]
             sym_p = params.get("symmetry_probability", 0.5)
             mirrored = ([a for a in params.get("axis_to_mirror", [0, 1])
@@ -1086,19 +1190,28 @@ def run_training(params: Params, data_path: Optional[str] = None,
             scene = setup_scene(params, item, seeded_generator(dev, torch_seed,
                                                          epoch, si),
                                 dev, mirrored_axes=mirrored)
-            rt.bind_scene(scene.cfg, scene.cell_table)
-            mp = os.path.join(mem_root, item["scene_name"], mem_dir)
-            hook = (None if on_phase is None else
-                    lambda pose_i, phase, e=epoch: on_phase(e, pose_i, phase))
-            traj = run_trajectory(
-                rt, scene, memory, mp, opts, gen, rs, n_poses=n_poses,
-                freeze_scone=freeze_scone, warmup_phase=warmup,
-                on_phase=hook, **common)
+            return scene, os.path.join(mem_root, item["scene_name"], mem_dir)
+
+        for g0 in range(0, len(scene_indices), group):
+            # Every scene of a group is set up (its mirroring drawn from
+            # rs) before any trajectory; a trailing group of one runs alone.
+            scenes, mps = zip(*[make_scene(si) for si in
+                                scene_indices[g0:g0 + group]])
+            kw = dict(freeze_scone=freeze_scone, warmup_phase=warmup,
+                      on_phase=hook, **common)
+            if len(scenes) > 1:
+                traj = run_trajectories_parallel(
+                    rt, list(scenes), memory, list(mps), opts, gen, rs,
+                    n_poses, **kw)
+            else:
+                traj = run_trajectory(rt, scenes[0], memory, mps[0], opts,
+                                      gen, rs, n_poses=n_poses, **kw)
             for k in epoch_losses:
                 epoch_losses[k] += traj[k]
             if verbose:
-                print(f"epoch {epoch} scene {item['scene_name']}: final "
-                      f"coverage {scene.coverages[-1]:.4f}")
+                covs = ", ".join(f"{s.name} {s.coverages[-1]:.4f}"
+                                 for s in scenes)
+                print(f"epoch {epoch}: final coverage {covs}")
 
         mean_depth = (float(np.mean(epoch_losses["depth"]))
                       if epoch_losses["depth"] else 0.0)
@@ -1116,7 +1229,6 @@ def run_training(params: Params, data_path: Optional[str] = None,
                     continue
                 item = dataset[dataset.scene_names.index(vname)]
                 vscene = setup_scene(params, item, gen, dev)
-                rt.bind_scene(vscene.cfg, vscene.cell_table)
                 vpath = os.path.join(mem_root, vname, "macarons_memory_val")
                 run_trajectory(rt, vscene,
                                Memory([vpath], current_epoch=epoch), vpath,

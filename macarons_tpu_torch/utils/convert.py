@@ -1,5 +1,5 @@
-"""Flax parameter trees -> PyTorch state dicts, and a reader for the JAX
-package's msgpack checkpoints (macarons_tpu/utils/checkpoint.py).
+"""Flax parameter trees <-> PyTorch modules, and a reader and a writer of
+the JAX package's msgpack checkpoints (macarons_tpu/utils/checkpoint.py).
 
 The port's modules carry the submodule names Flax gives their counterparts,
 so a parameter maps by path. Every Dense of the SCONE networks wraps an
@@ -11,7 +11,8 @@ under its own name (the PoseDecoder's ``fc``) becomes ``<name>.weight`` and
 becomes ``<conv>.weight`` (out, in, kh, kw), its ``bias`` ``<conv>.bias``. A
 LayerNorm's or BatchNorm's ``scale`` and ``bias`` become ``weight`` and
 ``bias``; a BatchNorm's ``batch_stats`` ``mean`` and ``var`` become
-``running_mean`` and ``running_var``.
+``running_mean`` and ``running_var``. ``torch_to_flax`` maps a SconeVis
+back.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -74,6 +76,36 @@ def flax_to_torch(params_tree: Mapping) -> Dict[str, torch.Tensor]:
             np.asarray(value, np.float32))
         out[name + ".num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+def torch_to_flax(module: nn.Module) -> Dict[str, Dict]:
+    """The inverse of ``flax_to_torch`` for a module of Dense, Linear and
+    LayerNorm layers (SconeVis): its Flax variables ``{"params": ...}`` of
+    float32 numpy arrays, nested by submodule name. The port's
+    ``attention.Dense`` is a Flax wrapper around ``Dense_0``; an
+    ``nn.Linear`` is a bare Flax Dense. Any other module with parameters
+    raises KeyError."""
+    from ..models.attention import Dense
+
+    params: Dict = {}
+
+    def put(name, leaves):
+        node = params
+        for part in name.split("."):
+            node = node.setdefault(part, {})
+        for k, t in leaves.items():
+            node[k] = np.array(t.detach().cpu().float().numpy())
+
+    for name, m in module.named_modules():
+        if isinstance(m, Dense):
+            put(name + ".Dense_0", {"kernel": m.weight.T, "bias": m.bias})
+        elif isinstance(m, nn.Linear):
+            put(name, {"kernel": m.weight.T, "bias": m.bias})
+        elif isinstance(m, nn.LayerNorm):
+            put(name, {"scale": m.weight, "bias": m.bias})
+        elif next(m.parameters(recurse=False), None) is not None:
+            raise KeyError(f"unmapped module {name} ({type(m).__name__})")
+    return {"params": params}
 
 
 _FIXED = {0xc0: None, 0xc2: False, 0xc3: True}
@@ -152,6 +184,73 @@ def read_msgpack(path: str):
     if end != len(buf):
         raise ValueError(f"{path}.msgpack: {len(buf) - end} trailing bytes")
     return tree
+
+
+def _pack(obj, out: bytearray):
+    """Append the msgpack encoding of ``obj`` (dicts with string keys,
+    strings, bytes, non-negative ints, lists and tuples, numpy arrays as
+    Flax's ndarray extension) to ``out``."""
+    if isinstance(obj, np.ndarray):
+        payload = bytearray()
+        _pack((list(obj.shape), obj.dtype.name,
+               np.ascontiguousarray(obj).tobytes()), payload)
+        _pack_header(out, len(payload), None, (0xc7, 0xc8, 0xc9))
+        out += struct.pack(">b", 1) + payload
+    elif isinstance(obj, dict):
+        _pack_header(out, len(obj), 0x80, (None, 0xde, 0xdf), fix_bits=16)
+        for k, v in obj.items():
+            _pack(str(k), out)
+            _pack(v, out)
+    elif isinstance(obj, (list, tuple)):
+        _pack_header(out, len(obj), 0x90, (None, 0xdc, 0xdd), fix_bits=16)
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        _pack_header(out, len(raw), 0xa0, (0xd9, 0xda, 0xdb), fix_bits=32)
+        out += raw
+    elif isinstance(obj, bytes):
+        _pack_header(out, len(obj), None, (0xc4, 0xc5, 0xc6))
+        out += obj
+    elif isinstance(obj, (int, np.integer)) and not isinstance(obj, bool) \
+            and obj >= 0:
+        obj = int(obj)
+        if obj <= 0x7f:
+            out.append(obj)
+        else:
+            code, fmt = next((c, f) for c, f, top in (
+                (0xcc, "B", 0xff), (0xcd, "H", 0xffff),
+                (0xce, "I", 0xffffffff), (0xcf, "Q", None))
+                if top is None or obj <= top)
+            out += struct.pack(">B" + fmt, code, obj)
+    else:
+        raise TypeError(f"cannot pack {type(obj).__name__}")
+
+
+def _pack_header(out: bytearray, n: int, fix, sized, fix_bits: int = 0):
+    """A container's or a blob's type byte and length: the fix form below
+    ``fix_bits`` items, else the 8-, 16- or 32-bit length form."""
+    if fix is not None and n < fix_bits:
+        out.append(fix | n)
+        return
+    for code, fmt, limit in zip(sized, (">B", ">H", ">I"),
+                                (0xff, 0xffff, 0xffffffff)):
+        if code is not None and n <= limit:
+            out += struct.pack(">B", code) + struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def write_msgpack(path: str, tree) -> str:
+    """The inverse of ``read_msgpack``: write the nested dicts of numpy
+    arrays ``tree`` to ``<path>.msgpack`` as flax.serialization.to_bytes
+    writes a state dict, so the JAX package's ``from_bytes`` reads it.
+    Returns the file's name."""
+    out = bytearray()
+    _pack(tree, out)
+    with open(path + ".msgpack", "wb") as f:
+        f.write(out)
+    return path + ".msgpack"
 
 
 def load_macarons_weights(model, path: str):

@@ -33,8 +33,8 @@ from macarons_tpu_torch.scene import grid as G
 from macarons_tpu_torch.scene.memory import Memory
 from macarons_tpu_torch.testers import scene as tester
 from macarons_tpu_torch.trainers import train_macarons as TM
-from macarons_tpu_torch.utils.convert import flax_to_torch, \
-    load_module_weights, read_msgpack
+from macarons_tpu_torch.utils.convert import load_module_weights, \
+    read_msgpack, write_msgpack
 from test_torch_port_trajectory import jax_draws
 from torch_port_helpers import grid_to_torch, torch_one_thread  # noqa: F401
 from torch_port_helpers import write_suite_vis_init
@@ -305,12 +305,16 @@ def test_suite_rows_commands(tmp_path):
     """Each row's runs at the committed protocol: 100 poses x 5 starts,
     nbv on scenes 0-4 with the committed SconeVis, random as two runs
     over scenes 0-4 and 5-9, carving on every scene, the trained row on
-    scenes 0-4 from the training run's epoch_2 checkpoint."""
+    scenes 0-4 with the SconeVis msgpack of the training run's newest
+    epoch."""
     from macarons_tpu_torch.data import suite_rows as R
 
     def arg(cmd, flag):
         return cmd[cmd.index(flag) + 1] if flag in cmd else None
 
+    (tmp_path / "weights").mkdir()
+    for e in (2, 10, 9):
+        (tmp_path / "weights" / f"epoch_{e}_vis.msgpack").write_bytes(b"")
     cmds = {name: R.eval_cmd(name, policy, scenes, 6, str(tmp_path))
             for runs in R.ROWS.values() for name, policy, scenes in runs}
     for name, cmd in cmds.items():
@@ -328,8 +332,9 @@ def test_suite_rows_commands(tmp_path):
     assert [arg(c, "--policies") for c in cmds.values()] == [
         "nbv", "random", "random", "carving", "nbv"]
     assert arg(cmds["nbv"], "--vis-weights") == S.SUITE_VIS_INIT + ".msgpack"
-    assert arg(cmds["trained"], "--weights") == str(
-        tmp_path / "weights" / "epoch_2_synth.pt")
+    assert arg(cmds["trained"], "--vis-weights") == str(
+        tmp_path / "weights" / "epoch_10_vis.msgpack")
+    assert "--weights" not in cmds["trained"]
     assert R.SEEDS == (5, 6, 7)
 
 
@@ -409,13 +414,16 @@ def test_suite_rows_summary(tmp_path):
     assert set(rows["rows"]) == {"random", "random_valid_starts"}
     with open(tmp_path / "rows.json") as f:
         assert json.load(f)["rows"] == json.loads(json.dumps(rows["rows"]))
-    # A training checkpoint whose SconeVis moved one weight by 0.5.
-    vis = flax_to_torch(read_msgpack(S.SUITE_VIS_INIT))
-    name = next(iter(vis))
-    vis[name].view(-1)[0] += 0.5
+    # A trained SconeVis msgpack with one weight moved by 0.5.
+    tree = read_msgpack(S.SUITE_VIS_INIT)
+    node, key = tree, "params"
+    while isinstance(node[key], dict):
+        node, key = node[key], next(iter(node[key]))
+    node[key] = node[key].copy()
+    node[key].reshape(-1)[0] += 0.5
     (tmp_path / "weights").mkdir()
-    torch.save({"vis": vis}, tmp_path / "weights" / "epoch_2_synth.pt")
+    write_msgpack(str(tmp_path / "weights" / "epoch_2_vis"), tree)
     change = suite_rows.summarize(str(tmp_path))["vis_change"]
-    assert change["checkpoint"] == "epoch_2_synth.pt"
+    assert change["checkpoint"] == "epoch_2_vis.msgpack"
     assert change["max_abs"] == pytest.approx(0.5)
     assert 0 < change["relative_norm"] < 1e-2

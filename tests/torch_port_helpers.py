@@ -197,3 +197,149 @@ def write_suite_vis_init(path):
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path + ".msgpack", "wb") as f:
         f.write(serialization.to_bytes(variables.vis))
+
+
+def depth_step_fp32_errors(learn_pose=True, seed=10, replicas=0,
+                           bn64=False):
+    """The depth step's float32 gradient error at the smoke's widths
+    (256x456, 96 planes, B 1, augmentation off, random Flax weights from
+    ``seed``): the JAX package's depth loss in float32 and under
+    ``jax.enable_x64`` (which keeps its disparity heads in float32), the
+    port's in float32 and float64, on the same frames and weights; "jax32
+    vs port64" holds JAX's float32 run to the one run that is float64
+    throughout. ``replicas`` more float32 runs of each package take the
+    frames with 1 % of their image entries moved by one ulp (positions and
+    signs from numpy's default_rng(seed + 100 r)), each held to port64:
+    the spread of each package's own float32 error. ``bn64`` adds a port
+    float32 run whose PoseDecoder BatchNorms compute in float64. Returns
+    {"a vs b":
+    (loss relative difference, max |g_a - g_b| / max |g_b|)}. On the CPU,
+    ~2 min and a few GiB, ~30 s a replica:
+    python -c "import sys; sys.path.insert(0, 'tests'); import conftest,
+    torch_port_helpers as h; print(h.depth_step_fp32_errors())" """
+    import jax
+
+    from macarons_tpu.config import Params as JParams
+    from macarons_tpu.models.macarons import create_macarons_model as jcreate
+    from macarons_tpu.scene import depth_runtime as jdr
+    from macarons_tpu.trainers import train_macarons as JTM
+    from macarons_tpu_torch.config import Params
+    from macarons_tpu_torch.models.macarons import create_macarons_model
+    from macarons_tpu_torch.ops import geometry as geo
+    from macarons_tpu_torch.scene import depth_runtime as dr
+    from macarons_tpu_torch.trainers import train_macarons as TM
+    from macarons_tpu_torch.utils.convert import flax_to_torch
+
+    H, W = 256, 456
+    cfg = dict(TINY, image_height=H, image_width=W, zfar=750.0,
+               use_perfect_depth=False, n_depth=96, alphas=[-2, -1],
+               n_alpha=2, n_alpha_for_supervision=2, learn_pose=learn_pose,
+               data_augmentation=False)
+    jparams = JParams(cfg)
+    jcfg = JTM.depth_cfg_from_params(jparams)
+    jm = jcreate(jparams).depth
+    v = random_flax_variables(
+        jm, seed, np.zeros((1, H, W, 3), np.float32),
+        np.zeros((1, 2, H, W, 3), np.float32),
+        np.eye(3, dtype=np.float32)[None], np.zeros((1, 3), np.float32),
+        np.zeros((1, 2, 6), np.float32))
+    rs = np.random.default_rng(seed + 1)
+    t = np.linspace(0.0, 0.4, 3)
+    eye = np.stack((30 * np.sin(t), 2 + t, 30 * np.cos(t)), -1)
+    R, T = geo.look_at_view_transform(
+        torch.as_tensor(eye, dtype=torch.float32), torch.zeros(3, 3))
+    frames = {"images": rs.uniform(size=(3, H, W, 3)).astype(np.float32),
+              "zbuf": rs.uniform(10.0, 50.0, size=(3, H, W, 1)).astype(
+                  np.float32),
+              "mask": rs.uniform(size=(3, H, W, 1)) > 0.1,
+              "R": R.numpy(), "T": T.numpy(),
+              "zfar": np.full((3,), 750.0, np.float32)}
+
+    def nudged(r):
+        """The frames with 1 % of the image entries one ulp up or down."""
+        rr = np.random.default_rng(seed + 100 * r)
+        flat = frames["images"].reshape(-1).copy()
+        pos = rr.choice(flat.size, flat.size // 100, replace=False)
+        flat[pos] = np.nextafter(flat[pos], rr.choice(
+            [-np.inf, np.inf], len(pos)).astype(np.float32))
+        return dict(frames, images=flat.reshape(frames["images"].shape))
+
+    def as64(tree):
+        return jax.tree_util.tree_map(
+            lambda a: (np.asarray(a, np.float64)
+                       if np.asarray(a).dtype == np.float32 else a), tree)
+
+    japply = jdr.make_apply_depth_fn(jm, jcfg, compute_loss=True, train=True)
+    runs = {}
+
+    def run_jax(name, x64, fr):
+        with jax.enable_x64(x64):
+            jb, ja = jdr.create_batch_for_depth_model(jcfg, fr, "supervision")
+            vv = as64(v) if x64 else v
+            jb, ja = (as64(jb), as64(ja)) if x64 else (jb, ja)
+            loss, g = jax.jit(jax.value_and_grad(lambda p: japply(
+                {"params": p, "batch_stats": vv["batch_stats"]}, jb, ja,
+                jax.random.PRNGKey(0))[0]))(vv["params"])
+            grads = flax_to_torch({"params": g})
+            runs[name] = (float(loss),
+                          {k: t.double() for k, t in grads.items()})
+
+    params = Params(cfg)
+    dcfg = TM.depth_cfg_from_params(params)
+
+    def bn_in_float64(bn):
+        """Flax's train-mode BatchNorm arithmetic in float64, cast back."""
+        def forward(x):
+            x = x.double()
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+            mul = torch.rsqrt(var + bn.eps) * bn.weight.double()
+            return ((x - mean[None, :, None, None]) * mul[None, :, None, None]
+                    + bn.bias.double()[None, :, None, None]).float()
+        bn.forward = forward
+
+    def run_port(name, dt, fr, pose_bn64=False):
+        m = create_macarons_model(params, "cpu").depth
+        m.load_state_dict(flax_to_torch(v))
+        m = m.to(dt).train()
+        if pose_bn64:
+            for mod in m.pose_decoder.modules():
+                if isinstance(mod, torch.nn.BatchNorm2d):
+                    bn_in_float64(mod)
+        batch, alpha = (
+            {k: x.to(dt) if x.is_floating_point() else x for k, x in d.items()}
+            for d in dr.create_batch_for_depth_model(dcfg, fr, "supervision"))
+        saved = torch.get_default_dtype()
+        torch.set_default_dtype(dt)
+        try:
+            loss = dr.depth_loss(m, dcfg, batch, alpha)[0]
+            loss.backward()
+        finally:
+            torch.set_default_dtype(saved)
+        runs[name] = (float(loss.detach()), {
+            n: p.grad.double() for n, p in m.named_parameters()})
+
+    run_jax("jax32", False, frames)
+    run_jax("jax64", True, frames)
+    run_port("port32", torch.float32, frames)
+    run_port("port64", torch.float64, frames)
+    pairs = [("jax32", "jax64"), ("port32", "port64"), ("port64", "jax64"),
+             ("port32", "jax64"), ("jax32", "port64")]
+    if bn64:
+        run_port("port32bn64", torch.float32, frames, pose_bn64=True)
+        pairs.append(("port32bn64", "port64"))
+    for r in range(1, replicas + 1):
+        fr = nudged(r)
+        run_jax(f"jax32~{r}", False, fr)
+        run_port(f"port32~{r}", torch.float32, fr)
+        pairs += [(f"jax32~{r}", "port64"), (f"port32~{r}", "port64")]
+
+    def err(a, b):
+        (la, ga), (lb, gb) = runs[a], runs[b]
+        scale = max(float(g.abs().max()) for g in gb.values())
+        return (abs(la - lb) / abs(lb),
+                max(float((ga[k] - g).abs().max()) for k, g in gb.items())
+                / scale)
+
+    return {f"{a} vs {b}": err(a, b) for a, b in pairs}
