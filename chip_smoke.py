@@ -3,11 +3,14 @@
 Usage: python3 chip_smoke.py
        python3 chip_smoke.py --depth-holds N   (only the depth hold, N times)
        python3 chip_smoke.py --group-times     (only scene groups 1, 2, 4
+                                                with the disk memory and 1,
+                                                2 with the device memory
                                                 timed, phase_group_times)
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. build the CUDA kernels from macarons_tpu_torch/csrc (one nvcc per
-     source, all started together);
+     source, all started together) and the replay memory's file loader
+     (g++);
   2. hold each kernel against its plain PyTorch twin on the card, at edge
      cases (B3's forward also at shapes that stress its launch plan:
      (3, 52, 2048), (1, 53, 1001), (24, 1, 2048), and (2, 5, 333) with
@@ -42,10 +45,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      the disparities and the depth step's masks agree; ManyDepth's forward
      time at B 1 and B 4;
   8. train: run_training with the default training config on the
-     59,392-face scene, epoch 0 (4 poses, a remap at pose 2), then a resumed
-     run through epoch 1 with depth and SCONE replay, validating on the
+     59,392-face scene and its default replay memory, the DeviceMemory
+     (frames, depths, snapshots and the episode on the card; the decision
+     scores all 30 neighbour moves), epoch 0 (4 poses, a remap at pose 2),
+     then a resumed run through epoch 1, its memory hydrated from the
+     files epoch 0 flushed, with depth and SCONE replay, validating on the
      scene after each epoch (2 poses, the coverage_validated_ checkpoint);
-     per-pose phase times, the checks of phase_train; one depth step (B 1:
+     per-pose phase times, the checks of phase_train (the flushed files
+     equal to the stores; each flush's host peak; depth replay's reads
+     through the native loader and through np.load); one depth step (B 1:
      the card's float64 gradient against the CPU's, its float32 one against
      the step's float32 noise from one-ulp replicas, TF32 off) and one
      SCONE step on the card
@@ -56,8 +64,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      phase's frames at 256x456 with 96 planes, batch 4 (an epoch, a resumed
      second, an epoch with learn_pose), each checkpoint reloaded two ways,
      the learn_pose step held like the depth step, bfloat16 convolutions
-     and the batched stem against float32, step times; then train group:
-     run_training at n_parallel_scenes 2 on synth_00 and synth_01, each
+     and the batched stem against float32, step times; then syncs: one
+     device-memory pose's episode, ring, store and depth-store calls under
+     torch.cuda's sync debug mode "error", one pose's online step with
+     each memory under "warn" (the synchronising calls and their sites),
+     the DeviceMemory's bytes at the default config; then train group:
+     run_training at n_parallel_scenes 2 with the disk memory (the native
+     loader, queued writes) on synth_00 and synth_01, each
      subdivided to 59,392 faces, as the train phase (4 group poses, a
      resumed epoch with depth replay at twice the samples and SCONE
      replay scene by scene): one depth step over both scenes' windows and
@@ -66,7 +79,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      times per scene-pose, the replay split and the peak memory;
   9. time each kernel at the shapes of the scene-scale path (B3 at the
      scorer's first pose, at the suite scorer's most frequent
-     (C_pad, 1, 512) and at the SCONE step's (4, 1, 2048), its backward
+     (C_pad, 1, 512), at the device decision's (30, 1, 2048) and at the
+     SCONE step's (4, 1, 2048), its backward
      at the SCONE step's two shapes beside the launch floor), and hold it
      against its twin there; time the two-pass composition (B1, B2, merge) against
      the fused launch, in turns;
@@ -146,27 +160,38 @@ from macarons_tpu_torch.ops.geometry import FoVCamera, look_at_view_transform
 from macarons_tpu_torch.ops.knn import knn_gather
 from macarons_tpu_torch.ops.projection import disparity_to_depth
 from macarons_tpu_torch.ops.sampling import compute_mesh_face_area, cumsum_rows
-from macarons_tpu_torch.scene.camera import PoseSpace, get_camera_RT
+from macarons_tpu_torch.scene.camera import (
+    PoseSpace,
+    episode_commit,
+    episode_interpolations,
+    episode_neighbors,
+    episode_pose_from_idx,
+    get_camera_RT,
+)
 from macarons_tpu_torch.scene.depth_runtime import (
     depth_loss,
     depth_masks,
     error_table,
     many_depth_inputs,
+    ring_frames,
+    ring_push,
     sample_augmentation,
+    store_append,
 )
 from macarons_tpu_torch.scene import runtime as scene_runtime
-from macarons_tpu_torch.scene.memory import Memory
+from macarons_tpu_torch.scene.memory import DeviceMemory, Memory
 from macarons_tpu_torch.testers import shapenet as shapenet_tester
 from macarons_tpu_torch.testers.scene import compute_trajectory
 from macarons_tpu_torch.trainers import pretrain_depth, pretrain_occ, \
     pretrain_vis
+from macarons_tpu_torch.trainers import train_macarons as TM
 from macarons_tpu_torch.trainers.train_macarons import (
     MacaronsRuntime,
     run_training,
     seeded_generator,
     setup_scene,
 )
-from macarons_tpu_torch.utils import generate_macarons_model
+from macarons_tpu_torch.utils import generate_macarons_model, native_loader
 from macarons_tpu_torch.utils.checkpoint import load_checkpoint
 from macarons_tpu_torch.utils.device import make_generator, resolve_device
 
@@ -353,10 +378,12 @@ def read_counts():
 def phase_build():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
-        for job in [pool.submit(m.build, verbose=True) for m in (shv, tr)]:
+        jobs = [pool.submit(m.build, verbose=True) for m in (shv, tr)]
+        jobs.append(pool.submit(native_loader.build))
+        for job in jobs:
             job.result()
-    print(f"[build] sh_visibility and tile_raster built in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] sh_visibility, tile_raster and the memory's file loader "
+          f"built in {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def phase_kernels(gen):
@@ -987,15 +1014,22 @@ class StepRecorder:
     """Counts the runtime's optimizer steps per (epoch, phase) while it is
     entered, keeps the arguments of every online depth and SCONE step (of
     a scene group's SCONE step, the last), the batch size of every depth
-    step, and the host seconds spent in the replay memory's reads per
-    (epoch, pose, phase). ``on_phase`` is the trainer's phase hook: it
-    also records a CUDA event at every phase boundary."""
+    step, the host seconds spent in the replay memory's reads per (epoch,
+    pose, phase) (the disk Memory's file reads; the DeviceMemory's slices
+    of its stores), and the DeviceMemory of the run (the last one
+    flushed) with every flush's seconds and the most host bytes its queued
+    writes held at once (``flushes``). ``on_phase`` is the trainer's phase hook: it also records a
+    CUDA event at every phase boundary."""
 
-    # The Memory methods that read files; time spent in one called from
-    # another counts once.
-    READS = ("load_frame", "load_frame_sequence", "load_depth",
-             "load_surface_scene", "load_occupancy_field",
-             "get_random_scene_for_scone")
+    # The memories' read methods; time spent in one called from another
+    # counts once.
+    READS = {Memory: ("load_frame", "load_frame_sequence", "load_depth",
+                      "depth_stack", "load_surface_scene",
+                      "load_occupancy_field", "get_random_scene_for_scone"),
+             DeviceMemory: ("load_frame_sequence", "load_depth",
+                            "depth_stack", "load_surface_scene",
+                            "load_occupancy_field",
+                            "get_random_scene_for_scone")}
 
     def __init__(self):
         self.epoch, self.pose, self.phase = None, None, None
@@ -1006,6 +1040,8 @@ class StepRecorder:
         self.scone_calls = []
         self.group_call = None
         self.reads = {}
+        self.device_memory = None
+        self.flushes = []
 
     def on_phase(self, epoch, pose_i, name):
         ev = torch.cuda.Event(enable_timing=True)
@@ -1017,8 +1053,10 @@ class StepRecorder:
         self.saved = (MacaronsRuntime.depth_train_step,
                       MacaronsRuntime.scone_train_step,
                       MacaronsRuntime.parallel_scone_train_step,
-                      {n: getattr(Memory, n) for n in self.READS})
-        depth_step, scone_step, group_step, reads = self.saved
+                      {(cls, n): getattr(cls, n) for cls, names in
+                       self.READS.items() for n in names},
+                      DeviceMemory.flush_to_disk)
+        depth_step, scone_step, group_step, reads, flush = self.saved
         depth_in_read = [0]
 
         def count(kind):
@@ -1063,18 +1101,29 @@ class StepRecorder:
                                        + time.perf_counter() - t0)
             return read
 
+        def flushed(dmem, *args, **kw):
+            self.device_memory = dmem
+            Memory.reset_queued_peak()
+            t0 = time.perf_counter()
+            out = flush(dmem, *args, **kw)
+            self.flushes.append((time.perf_counter() - t0,
+                                 Memory.queued_peak()))
+            return out
+
         MacaronsRuntime.depth_train_step = depth
         MacaronsRuntime.scone_train_step = scone
         MacaronsRuntime.parallel_scone_train_step = group
-        for name, fn in reads.items():
-            setattr(Memory, name, timed(fn))
+        for (cls, name), fn in reads.items():
+            setattr(cls, name, timed(fn))
+        DeviceMemory.flush_to_disk = flushed
         return self
 
     def __exit__(self, *exc):
         (MacaronsRuntime.depth_train_step, MacaronsRuntime.scone_train_step,
          MacaronsRuntime.parallel_scone_train_step) = self.saved[:3]
-        for name, fn in self.saved[3].items():
-            setattr(Memory, name, fn)
+        for (cls, name), fn in self.saved[3].items():
+            setattr(cls, name, fn)
+        DeviceMemory.flush_to_disk = self.saved[4]
 
     def count(self, epoch, phase, kind):
         return self.steps.get((epoch, phase, kind), 0)
@@ -1594,21 +1643,25 @@ TRAIN_PHASES = ("decision", "capture", "depth_step", "scone_step",
 def phase_train(frames_to):
     """The online trainer as users run it: run_training with the default
     training config at full widths on the 59,392-face scene (random weights
-    from its torch_seed). Epoch 0: TRAIN_POSES poses, a remap at pose
-    TRAIN_REMAP, memory trajectory slot 0. Then a second run resumes from
-    epoch 0's checkpoint and trains epoch 1 in slot 1, with depth replay
-    (n_memory_loops steps of n_memory_samples frames) and SCONE replay
-    (n_memory_scene_loops steps) from slot 0 after every pose. Every epoch
-    validates on the scene (VAL_POSES poses, frozen weights). Launch
-    counts are set to 0 before the first run and read after the second.
-    Fails unless the losses are finite with a positive depth loss, the
-    three networks moved, both B3 kernels and rasterize_tiled launched,
-    the B3 backward once per SCONE step, each trajectory saved 1 + n_alpha
-    + poses x interpolation steps frames, the checkpoint reloads, and the
-    coverage_validated_ checkpoint holds a validation coverage in [0, 1].
-    Then one depth step (B 1) and one SCONE step on the card against the
-    CPU. The memory's two frames/ directories are copied under
-    ``frames_to`` for the depth pretrainer."""
+    from its torch_seed), its replay memory the default DeviceMemory.
+    Epoch 0: TRAIN_POSES poses, a remap at pose TRAIN_REMAP, memory
+    trajectory slot 0, the memory flushed to disk at its end. Then a second
+    run resumes from epoch 0's checkpoint, hydrates the memory from disk
+    and trains epoch 1 in slot 1, with depth replay (n_memory_loops steps
+    of n_memory_samples frames) and SCONE replay (n_memory_scene_loops
+    steps) from slot 0 after every pose. Every epoch validates on the
+    scene (VAL_POSES poses, frozen weights, a disk Memory). Launch counts
+    are set to 0 before the first run and read after the second. Fails
+    unless the losses are finite with a positive depth loss, the three
+    networks moved, both B3 kernels and rasterize_tiled launched (B3 at
+    the device decision's (30, 1, seq_len) once per pose), the B3 backward
+    once per SCONE step, each trajectory holds 1 + n_alpha + poses x
+    interpolation steps frames in the DeviceMemory and on disk, the
+    remap's depths too, the flushed files equal the stores, the checkpoint
+    reloads, and the coverage_validated_ checkpoint holds a validation
+    coverage in [0, 1]. Then one depth step (B 1) and one SCONE step on
+    the card against the CPU. The memory's two frames/ directories are
+    copied under ``frames_to`` for the depth pretrainer."""
     dev = resolve_device("cuda")
     gc.collect()
     torch.cuda.empty_cache()
@@ -1653,6 +1706,11 @@ def phase_train(frames_to):
         n_frames = [len(os.listdir(os.path.join(mem, str(t), "frames")))
                     for t in (0, 1)]
         n_depths = len(os.listdir(os.path.join(mem, "0", "depths")))
+        dmem = rec.device_memory
+        if dmem is None:
+            fail("the train phase did not run the device memory")
+        stores = hold_flushed(dmem, os.path.dirname(mem))
+        reads = loader_times(os.path.dirname(mem), p1)
         reloaded = create_macarons_model(p1, dev)
         meta = load_macarons(os.path.join(wdir, "unvalidated_smoke"),
                              reloaded, create_optimizers(p1, reloaded))
@@ -1693,6 +1751,16 @@ def phase_train(frames_to):
           f"optimizer steps (epoch, phase, network): {steps}; frames per "
           f"trajectory {n_frames}, remap depths {n_depths}; launches "
           f"{counts}", flush=True)
+    print(f"[train] DeviceMemory: {stores}; the flushed files equal the "
+          f"stores; flush_to_disk per epoch (s, most host bytes its queued "
+          f"writes held at once): {rec.flushes}", flush=True)
+    print(f"[train] depth replay's reads of the flushed files, ms per "
+          f"replay batch (median, min-max of {LOADER_REPS}, warm page "
+          f"cache): {reads}", flush=True)
+    if stores["frames"] != [want_frames(p0)] * 2 or stores["depths"][0] \
+            != n_depths:
+        fail(f"the DeviceMemory holds {stores}, not {want_frames(p0)} frames "
+             f"a slot and the remap's {n_depths} depths")
 
     if losses[0] != losses0[0]:
         fail("the resumed run lost epoch 0's losses")
@@ -1714,9 +1782,11 @@ def phase_train(frames_to):
     if counts["sh_visibility_backward"] != n_scone:
         fail(f"{counts['sh_visibility_backward']} launches of the B3 "
              f"backward kernel for {n_scone} SCONE steps")
-    want = 1 + p0.n_alpha + TRAIN_POSES * p0.n_interpolation_steps
+    want = want_frames(p0)
     if n_frames != [want, want]:
         fail(f"frames per trajectory {n_frames}, not {want}")
+    launches_at(counts, (DECISION_CANDIDATES, 1, p0.seq_len),
+                2 * TRAIN_POSES)
     if (rec.count(1, "depth_replay", "depth")
             != TRAIN_POSES * p1.n_memory_loops
             or rec.count(1, "scone_replay", "scone")
@@ -1781,7 +1851,276 @@ def phase_train(frames_to):
           f"step {s_ms[0]:.2f} ms ({s_ms[1]:.2f}-{s_ms[2]:.2f}), peak "
           f"{s_peak:.2f} GiB", flush=True)
     return dict(counts=counts, n_cams=int(sargs[5].R.shape[0]),
-                seq_len=p1.seq_len, frames_dirs=frames_dirs, model=model)
+                seq_len=p1.seq_len, frames_dirs=frames_dirs, model=model,
+                store_bytes=stores["bytes"])
+
+
+# The device decision scores every neighbour move of the lattice: one
+# translation unit, at most one rotation unit.
+DECISION_CANDIDATES = 30
+
+
+def want_frames(params):
+    """Frames a trajectory of the smoke's training runs captures."""
+    return 1 + params.n_alpha + TRAIN_POSES * params.n_interpolation_steps
+
+
+def hold_flushed(dmem, scene_dir):
+    """The DeviceMemory's stores against the files its flush wrote under
+    ``scene_dir`` (read by a disk Memory): every slot's frames, depths and
+    snapshots, bit for bit. Returns the frame and depth counts per slot and
+    the stores' bytes."""
+    disk = Memory([scene_dir], n_trajectories=dmem.n_trajectories)
+    out = {"frames": [], "depths": [], "bytes": dmem.nbytes()}
+    for t in range(dmem.n_trajectories):
+        n, n_d = dmem.n_frames(scene_dir, t), dmem.n_depths(scene_dir, t)
+        out["frames"].append(n)
+        out["depths"].append(n_d)
+        if (disk.n_frames(scene_dir, t), disk.n_depths(scene_dir, t)) \
+                != (n, n_d):
+            fail(f"slot {t}: {n} frames and {n_d} depths in the DeviceMemory, "
+                 f"{disk.n_frames(scene_dir, t)} and "
+                 f"{disk.n_depths(scene_dir, t)} on disk")
+        pairs = []
+        if n:
+            files = disk.load_frame_sequence(scene_dir, n - 1, n, t)
+            store = dmem.load_frame_sequence(scene_dir, n - 1, n, t)
+            pairs += [(k, store[k], files[k]) for k in store]
+        for i in range(n_d):
+            files = disk.load_depth(scene_dir, i, t)
+            pairs += [(f"depth {i} {k}", v, files[k]) for k, v in
+                      dmem.load_depth(scene_dir, i, t).items()]
+        for name in ("load_surface_scene", "load_occupancy_field"):
+            state = getattr(dmem, name)(scene_dir, t)[0]
+            files = getattr(disk, name)(scene_dir, t)[0]
+            pairs += [(f"{name} {k}", getattr(state, k), getattr(files, k))
+                      for k in state._fields]
+        for k, a, b in pairs:
+            if not torch.equal(a.cpu(), torch.as_tensor(b)):
+                fail(f"slot {t}: the flushed {k} differs from the store's")
+    return out
+
+
+LOADER_REPS = 7
+
+
+def loader_times(scene_dir, params):
+    """Depth replay's reads on the files under ``scene_dir``: the batches
+    of ``sample_depth_replay`` (n_memory_samples windows of the depth
+    step's context) read by the disk Memory through the native loader and
+    by np.load file by file (as the memory read before the loader), in
+    turns, LOADER_REPS times each. Fails unless both give the same arrays.
+    Returns ms per batch, median and range, per reader."""
+    disk = Memory([scene_dir], n_trajectories=2)
+    dcfg = TM.depth_cfg_from_params(params)
+    n_context = dcfg.n_alpha + 1 + (
+        1 if dcfg.use_future_frame_for_supervision else 0)
+    draws = disk.sample_depth_replay(np.random.default_rng(0),
+                                     params.get("n_memory_samples", 4),
+                                     n_context)
+
+    def native():
+        return [disk.load_frame_sequence(p, last, n_context, t)
+                for p, t, last in draws]
+
+    def plain():
+        out = []
+        for p, t, last in draws:
+            files = []
+            for i in range(last - n_context + 1, last + 1):
+                with np.load(os.path.join(disk.frames_dir(p, t),
+                                          f"{i}.npz")) as z:
+                    files.append({k: z[k] for k in z.files})
+            out.append({("images" if k == "rgb" else k): np.concatenate(
+                [f[k] for f in files]) for k in ("rgb", "zbuf", "mask", "R",
+                                                   "T")})
+        return out
+
+    for a, b in zip(native(), plain()):
+        if any(not np.array_equal(a[k], b[k]) for k in b):
+            fail("the native loader's frames differ from np.load's")
+    ms = {"native_loader": [], "np_load": []}
+    for _ in range(LOADER_REPS):
+        for name, fn in (("native_loader", native), ("np_load", plain)):
+            t0 = time.perf_counter()
+            fn()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: (float(np.median(v)), min(v), max(v))
+            for name, v in ms.items()}
+
+
+class sync_mode:
+    """torch.cuda's sync debug mode ("warn" or "error") inside the block.
+    Under "warn", ``sites`` counts the synchronising calls by the innermost
+    frame of the port's package (else the warning's own site)."""
+
+    def __init__(self, mode):
+        self.mode = mode
+        self.sites = {}
+
+    def _show(self, message, category, filename, lineno, file=None,
+              line=None):
+        if "synchroniz" not in str(message):
+            return
+        import traceback
+
+        pkg = os.path.join(REPO_DIR, "macarons_tpu_torch")
+        mine = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(pkg)]
+        site = (f"{os.path.relpath(mine[-1].filename, REPO_DIR)}:"
+                f"{mine[-1].lineno} ({mine[-1].name})" if mine
+                else f"{filename}:{lineno}")
+        self.sites[site] = self.sites.get(site, 0) + 1
+
+    def __enter__(self):
+        import warnings
+
+        self.caught = warnings.catch_warnings()
+        self.caught.__enter__()
+        warnings.simplefilter("always")
+        warnings.showwarning = self._show
+        torch.cuda.set_sync_debug_mode(self.mode)
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self.caught.__exit__(*exc)
+
+    def total(self):
+        return sum(self.sites.values())
+
+
+def episode_calls(rt, scene, memory, mp, gen):
+    """One device-memory pose's episode, ring, store and depth-store calls
+    (the capture replaced by the ring's newest frames): the candidates,
+    the selection on drawn gains, the interpolated move, the ring push, the
+    store's append and window, the commit, a depth appended, gathered and
+    read back, the counts."""
+    tables, dims, n_elev, n_azim = TM._lattice(scene)
+    K = rt.n_interpolation_steps
+    ep = scene.episode
+    cand, new_ok, visited_ok = episode_neighbors(ep, tables, dims)
+    episode_pose_from_idx(cand, tables, n_elev, n_azim)
+    gains = torch.rand(cand.shape[0], device=cand.device, generator=gen)
+    nxt = TM.select_move(cand, gains, new_ok, visited_ok)
+    X, V = episode_interpolations(ep, nxt, tables, n_elev, n_azim, K)
+    R, T = get_camera_RT(X, V)
+    fr = ring_frames(scene.ring, K)
+    ring_push(scene.ring, fr["images"], fr["zbuf"], fr["mask"], R, T,
+              rt.dcfg.zfar)
+    memory.update_store(mp, store_append(memory.store(mp), fr["images"],
+                                         fr["zbuf"], fr["mask"], R, T))
+    n = memory.n_frames(mp)
+    win = memory.load_frame_sequence(mp, n - 1, 1 + rt.dcfg.n_alpha)
+    episode_commit(ep, nxt, X, V, R, T, dims)
+    memory.save_depth(mp, 0, win["zbuf"][:1], win["mask"][:1],
+                      win["mask"][:1], win["R"][:1], win["T"][:1])
+    memory.depth_stack(mp, None, [0, 0])
+    memory.load_depth(mp, memory.n_depths(mp) - 1)
+    memory.sample_depth_replay(np.random.default_rng(0), 4, 3)
+
+
+SYNC_POSES = 2  # the replayed trajectory's poses, the remap at its last
+
+
+def phase_syncs():
+    """What synchronises the host with the card in a training pose, on the
+    59,392-face scene at the default training config's widths, with the
+    device memory and with the disk memory: a trajectory of SYNC_POSES
+    poses in slot 0 (a remap at its last) that the next one replays, then
+    a replaying pose in slot 1 (online step, depth replay, SCONE replay)
+    under torch.cuda's sync debug mode "warn": the synchronising calls of
+    the pose by phase (between the trainer's phase hooks) and by site,
+    and of its trajectory's start. Then, on the device memory, one pose's episode,
+    ring, store and depth-store calls under "error" (they must not
+    raise). Also the DeviceMemory's bytes for one (scene, slot) at the
+    default config's trajectory (100 poses). Returns what PERF.md
+    reports."""
+    dev = resolve_device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_syncs_",
+                                     dir=_work_dir()) as tmp:
+        root = scene_scale_suite(os.path.join(tmp, "scenes"), SCENE_LEVELS)
+        params = train_params(root, 1)
+        model = create_macarons_model(params, dev)
+        init_macarons_weights(model, seeded_generator(dev, params.torch_seed))
+        opts = create_optimizers(params, model)
+        rt = MacaronsRuntime(params, model, device=dev)
+        item = SceneDataset(root)[0]
+        gen = seeded_generator(dev, params.torch_seed, 0)
+        rs = np.random.default_rng(0)
+        for mode in ("device", "disk"):
+            mp = os.path.join(tmp, mode, "synth_00", "macarons_memory")
+            memory = (DeviceMemory(
+                [mp], n_trajectories=2, max_frames=want_frames(params),
+                max_depths=want_frames(params), height=rt.H, width=rt.W,
+                zfar=params.zfar, device=dev) if mode == "device"
+                else Memory([mp], n_trajectories=2))
+            episodes = (TM.DEVICE_EPISODES if mode == "device"
+                        else TM.HOST_EPISODES)
+            marks = []
+
+            def trajectory(scene, epoch, n_poses, **kw):
+                memory.current_epoch = epoch
+                TM.run_trajectory(rt, scene, memory, mp, opts, gen, rs,
+                                  n_poses,
+                                  n_memory_loops=params.n_memory_loops,
+                                  episodes=episodes, **kw)
+
+            scenes = [setup_scene(params, item, seeded_generator(
+                dev, params.torch_seed, 9), dev) for _ in range(2)]
+            trajectory(scenes[0], 0, SYNC_POSES, remap_at=SYNC_POSES - 1)
+            scene = scenes[1]
+            torch.cuda.synchronize()
+            with sync_mode("warn") as syncs:
+                trajectory(scene, 1, 1, on_phase=lambda i, name: marks.append(
+                    (name, syncs.total())))
+                torch.cuda.synchronize()
+                marks.append(("end", syncs.total()))
+            phases = {a: b - n for (a, n), (_, b) in zip(marks, marks[1:])}
+            pose = marks[-1][1] - marks[0][1]
+            out[mode] = {"pose": pose, "start": marks[0][1],
+                         "phases": phases}
+            sites = dict(sorted(syncs.sites.items(), key=lambda kv: -kv[1]))
+            print(f"[syncs] {mode} memory, a replaying pose's synchronising "
+                  f"calls under sync debug mode warn: {pose} (by phase "
+                  f"{phases}); its trajectory's start {marks[0][1]}; all "
+                  f"{syncs.total()} by site {sites}", flush=True)
+            if mode == "device":
+                try:
+                    with sync_mode("error"):
+                        episode_calls(rt, scene, memory, mp, gen)
+                except RuntimeError as err:
+                    fail(f"the device memory's episode, ring and store calls "
+                         f"synchronise with the card: {err}")
+                print("[syncs] the device memory's episode, ring, store and "
+                      "depth-store calls of a pose ran under sync debug mode "
+                      "error", flush=True)
+            else:
+                memory.flush()
+        traj = 1 + params.n_alpha + 100 * params.n_interpolation_steps
+        full = DeviceMemory([tmp], max_frames=traj, max_depths=traj,
+                            height=rt.H, width=rt.W, zfar=params.zfar,
+                            device=dev)
+        full.begin_trajectory(tmp)
+        out["slot_bytes"] = full.nbytes()
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+    default = load_params(os.path.join(
+        REPO_DIR, "configs/macarons/macarons_default_training_config.json"))
+    slots = default.n_memory_trajectories
+    scenes = len(default.train_scenes)
+    out["config_bytes"] = scenes * slots * out["slot_bytes"]
+    print(f"[syncs] DeviceMemory at the default training config ({traj} "
+          f"frames of {rt.H}x{rt.W}): {out['slot_bytes'] / 1e9:.3f} GB "
+          f"allocated for one (scene, slot); its {scenes} training scenes x "
+          f"{slots} slots: {out['config_bytes'] / 1e9:.2f} GB; the phase "
+          f"took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 GROUP = 2
@@ -1804,8 +2143,9 @@ def group_suite(root, levels, n_scenes=GROUP):
 
 def phase_train_group():
     """Scene-group training as users run it: run_training with the default
-    training config at full widths and n_parallel_scenes GROUP on
-    synth_00 and synth_01 subdivided SCENE_LEVELS times. Epoch 0:
+    training config at full widths, n_parallel_scenes GROUP and the disk
+    memory (device_memory false) on synth_00 and synth_01 subdivided
+    SCENE_LEVELS times. Epoch 0:
     TRAIN_POSES group poses (decisions, moves and captures scene by scene,
     one depth step over both scenes' windows, one SCONE step on the mean
     of their losses), a remap at pose TRAIN_REMAP; then a resumed epoch 1
@@ -1829,7 +2169,9 @@ def phase_train_group():
         wdir, mroot = os.path.join(tmp, "weights"), os.path.join(tmp, "mem")
         p0, p1 = train_params(root, 1), train_params(root, 2)
         for p in (p0, p1):
-            p.update(dict(n_parallel_scenes=GROUP))
+            # The disk memory (the native loader, queued writes); the train
+            # phase runs the default DeviceMemory.
+            p.update(dict(n_parallel_scenes=GROUP, device_memory=False))
         init = create_macarons_model(p0, dev)
         init_macarons_weights(init, seeded_generator(dev, p0.torch_seed))
         init = {name: {k: v.detach().cpu().clone() for k, v in
@@ -1961,12 +2303,14 @@ def phase_group_times():
     poses each, the remap at the last saving every depth; and the default
     training config (train_params) on synth_00..synth_03 subdivided
     SCENE_LEVELS times, TRAIN_POSES poses, a remap at TRAIN_REMAP. Each
-    group size: an epoch, then a resumed one with replay. Prints, per
-    configuration, group and epoch, the ms per scene-pose of each phase
-    (between CUDA events), of it the memory reads (host time), the seconds
-    per scene-pose and the peak device memory; group 4, if its run runs
-    out of device memory, is reported as not fitting (an OOM at groups 1
-    and 2 fails the run)."""
+    configuration runs with the disk memory at groups 1, 2 and 4, and
+    with the DeviceMemory at groups 1 and 2. Each run: an epoch, then a
+    resumed one with replay. Prints, per configuration, memory, group and
+    epoch, the ms per scene-pose of each phase (between CUDA events), of it
+    the memory reads (host time: file reads, or the device memory's
+    slices), the seconds per scene-pose and the peak device memory; group
+    4, if its run runs out of device memory, is reported as not fitting (an
+    OOM at groups 1 and 2 fails the run)."""
     dev = resolve_device("cuda")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_gtimes_",
                                      dir=_work_dir()) as tmp:
@@ -1974,7 +2318,9 @@ def phase_group_times():
         scenes = group_suite(os.path.join(tmp, "scenes"), SCENE_LEVELS,
                              GROUP_TIME_SCENES)
         configs = []
-        for g in (1, 2, 4):
+        runs = [("disk", g) for g in (1, 2, 4)] + [("device", 1),
+                                                   ("device", 2)]
+        for memory, g in runs:
             p = suite_training_params(suite)
             # The remap (the config's at pose 95 of 100) at the cut
             # trajectory's last pose, saving every frame's depth (the
@@ -1983,11 +2329,14 @@ def phase_group_times():
             # config's epochs do.
             p.update(dict(n_poses_in_trajectory=GROUP_TIME_SUITE_POSES,
                           remap_every_n_poses=GROUP_TIME_SUITE_POSES - 1,
-                          save_depth_every_n_frame=1))
-            configs.append(("suite train-config", g, p))
-        for g in (1, 2, 4):
-            configs.append(("default training config", g,
-                            train_params(scenes, 1)))
+                          save_depth_every_n_frame=1,
+                          device_memory=memory == "device"))
+            configs.append((f"suite train-config, {memory} memory", g, p))
+        for memory, g in runs:
+            p = train_params(scenes, 1)
+            p.update(dict(device_memory=memory == "device"))
+            configs.append((f"default training config, {memory} memory", g,
+                            p))
         for label, g, p in configs:
             gc.collect()
             torch.cuda.empty_cache()
@@ -3392,10 +3741,18 @@ def main():
         scone_row = kernel_row(gen, launches_at(train["counts"], step,
                                                 backward["launches"]),
                                worst, step, "SCONE step")
-        rows += [scone_row, backward]
+        # The device memory's decision scores every neighbour move.
+        decision = (DECISION_CANDIDATES, 1, train["seq_len"])
+        rows += [scone_row, backward,
+                 kernel_row(gen, launches_at(train["counts"], decision),
+                            worst, decision, "device decision"),
+                 dict(next(r for r in rows if r["name"] == "rasterize_tiled"),
+                      name="rasterize_tiled (train, device memory)",
+                      launches=train["counts"]["rasterize_tiled"])]
         phase_depth_pretrain(train["frames_dirs"], train.pop("model"))
     finally:
         shutil.rmtree(keep)
+    phase_syncs()
     # The group phase's launches of the train path's kernels, beside the
     # rows measured above at the same shapes.
     group = phase_train_group()

@@ -1,14 +1,18 @@
 """Camera agent on a 5-D pose lattice: neighbours, validity, interpolated
-moves, capture (port of the host Camera of macarons_tpu/scene/camera.py).
+moves, capture (port of macarons_tpu/scene/camera.py).
 
-Pose math that is only bookkeeping stays in host numpy; validity tests and
-capture run on the camera's device.
+The host ``Camera`` keeps its bookkeeping in numpy; validity tests and
+capture run on the camera's device. The episode functions
+(``DeviceEpisode`` and ``episode_*``) keep a trajectory's state on the card
+instead, for the trainer's device memory: the pose, the visited set and the
+histories are tensors, and a move is chosen, interpolated and committed
+without a transfer to the host.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -17,6 +21,7 @@ from ..ops.geometry import FoVCamera, get_cartesian_coords, \
     look_at_view_transform
 from ..ops.projection import points_in_fov_mask
 from ..ops.rasterizer import PointLights, render_mesh
+from .depth_runtime import FrameRing, _clamped_start, ring_push
 
 
 def get_camera_RT(X_cam, V_cam):
@@ -187,17 +192,13 @@ class Camera:
         """Unoccupied poses whose FoV holds a mesh vertex (and a proxy point,
         if given), within 5 * zfar."""
         idx = np.asarray(pose_indices).reshape(-1, 5)
-        poses = self.pose_space.pose_from_idx(idx)
-        cams = self._fov_cameras(poses[:, :3], poses[:, 3:])
-        B = idx.shape[0]
-        ok = points_in_fov_mask(verts[None].expand(B, *verts.shape), cams,
-                                self.image_height, self.image_width,
-                                fov_range=5 * self.zfar).any(dim=-1)
+        poses = torch.as_tensor(self.pose_space.pose_from_idx(idx),
+                                device=self.device)
+        ok = fov_holds_points(poses, verts, self.image_height,
+                              self.image_width, self.zfar)
         if proxy_points is not None:
-            ok = ok & points_in_fov_mask(
-                proxy_points[None].expand(B, *proxy_points.shape), cams,
-                self.image_height, self.image_width,
-                fov_range=5 * self.zfar).any(dim=-1)
+            ok = ok & fov_holds_points(poses, proxy_points, self.image_height,
+                                       self.image_width, self.zfar)
         ok = ok.cpu().numpy()
         if self.occupied_poses is not None:
             ok = ok & ~self.occupied_poses[idx[:, 0], idx[:, 1], idx[:, 2]]
@@ -237,3 +238,226 @@ class Camera:
             float(ambient_light_intensity), texture_atlas=texture_atlas)
         self.n_frames_captured += int(cam.R.shape[0])
         return images, depth, mask
+
+
+def capture_ring(camera: Camera, verts, faces, X, V, ring: FrameRing,
+                 vert_colors=None, texture_atlas=None, ambient: float = 1.0):
+    """Capture the poses (X (K, 3), V (K, 2), tensors) with ``camera``'s
+    image size, zfar and contrast, and push the frames onto ``ring``.
+    Returns (images, depth, mask, R, T, ring)."""
+    R, T = get_camera_RT(X, V)
+    images, depth, mask = capture(
+        verts, faces, vert_colors, R, T, camera.image_height,
+        camera.image_width, camera.zfar, float(camera.contrast_factor),
+        float(ambient), texture_atlas=texture_atlas)
+    ring = ring_push(ring, images, depth, mask, R, T, camera.zfar)
+    return images, depth, mask, R, T, ring
+
+
+# ---------------------------------------------------------------------------
+# Episode state on the card (the trainer's device-memory path)
+# ---------------------------------------------------------------------------
+
+
+class PoseSpaceTables(NamedTuple):
+    """A pose lattice's tables on the card."""
+
+    x_min: torch.Tensor  # (3,)
+    steps: torch.Tensor  # (3,)
+    shifts: torch.Tensor  # (30, 5) int64, the neighbour moves
+    occupied: torch.Tensor  # (L * W * H,) bool, flat
+
+
+def pose_space_tables(ps: PoseSpace, occupied: Optional[np.ndarray] = None,
+                      device=None) -> PoseSpaceTables:
+    occ = (np.zeros((ps.pose_l, ps.pose_w, ps.pose_h), bool)
+           if occupied is None else np.asarray(occupied, bool))
+    return PoseSpaceTables(
+        x_min=torch.as_tensor(ps.x_min, dtype=torch.float32, device=device),
+        steps=torch.as_tensor(ps.steps, dtype=torch.float32, device=device),
+        shifts=torch.as_tensor(POSE_SHIFTS, dtype=torch.int64, device=device),
+        occupied=torch.as_tensor(occ.reshape(-1), device=device))
+
+
+class DeviceEpisode(NamedTuple):
+    """A trajectory's state: the current pose, the visited set, the
+    histories (capacity-sized, filled up to the host counts)."""
+
+    cam_idx: torch.Tensor  # (5,) int64
+    visited: torch.Tensor  # (n_poses,) bool, by flat index
+    X: torch.Tensor  # (1, 3)
+    V: torch.Tensor  # (1, 2) elev, azim in degrees
+    R: torch.Tensor  # (1, 3, 3)
+    T: torch.Tensor  # (1, 3)
+    idx_history: torch.Tensor  # (max_moves, 5) int64
+    X_history: torch.Tensor  # (max_frames, 3), every captured pose
+    V_history: torch.Tensor  # (max_frames, 2)
+    n_moves: int
+    n_frames: int
+
+
+def episode_pose_from_idx(idx, tables: PoseSpaceTables, n_elev: int,
+                          n_azim: int):
+    """(..., 5) lattice indices -> (..., 5) poses [x, y, z, elev, azim]."""
+    pos = tables.x_min + (idx[..., :3].float() + 0.5) * tables.steps
+    elev = -90.0 + 180.0 * (1 + idx[..., 3].float()) / (n_elev + 1)
+    azim = 360.0 * idx[..., 4].float() / n_azim
+    return torch.cat((pos, elev[..., None], azim[..., None]), dim=-1)
+
+
+def episode_flat_index(idx, dims: Tuple[int, ...]):
+    f = torch.zeros_like(idx[..., 0])
+    for k in range(5):
+        f = f * int(dims[k]) + idx[..., k]
+    return f
+
+
+def _occupied_at(tables: PoseSpaceTables, idx, dims):
+    L, W, H = (int(d) for d in dims[:3])
+    cell = (idx[..., 0] * W + idx[..., 1]) * H + idx[..., 2]
+    return tables.occupied[cell]
+
+
+def episode_neighbors(ep: DeviceEpisode, tables: PoseSpaceTables,
+                      dims: Tuple[int, ...]):
+    """Every neighbour move of the current pose, clamped to the lattice
+    (the azimuth wraps). Returns (idx (30, 5), new_ok (30,), visited_ok
+    (30,)): a move is ok if it translates and is the first occurrence of its
+    pose after clamping; new_ok also asks it unvisited and unoccupied,
+    visited_ok visited."""
+    L, W, H, NE, NA = (int(d) for d in dims)
+    res = ep.cam_idx[None, :] + tables.shifts
+    res = torch.stack((res[:, 0].clamp(0, L - 1), res[:, 1].clamp(0, W - 1),
+                       res[:, 2].clamp(0, H - 1), res[:, 3].clamp(0, NE - 1),
+                       res[:, 4] % NA), dim=-1)
+    translating = (res[:, :3] - ep.cam_idx[None, :3]).abs().sum(dim=1) > 0
+    same = (res[:, None, :] == res[None, :, :]).all(dim=-1)
+    first = (torch.argmax(same.to(torch.uint8), dim=1)
+             == torch.arange(res.shape[0], device=res.device))
+    ok = translating & first
+    visited = ep.visited[episode_flat_index(res, dims)]
+    new_ok = ok & ~visited & ~_occupied_at(tables, res, dims)
+    return res, new_ok, ok & visited
+
+
+def episode_interpolations(ep: DeviceEpisode, new_idx,
+                           tables: PoseSpaceTables, n_elev: int, n_azim: int,
+                           n_steps: int):
+    """The n_steps interpolated poses of a move to new_idx (X (K, 3), V
+    (K, 2)): across the azimuth's wrap the intermediate steps turn the
+    short way, the last lands on the lattice value."""
+    old = episode_pose_from_idx(ep.cam_idx, tables, n_elev, n_azim)
+    new = episode_pose_from_idx(new_idx, tables, n_elev, n_azim)
+    o4, n4 = ep.cam_idx[4], new_idx[4]
+    zero = torch.zeros((), device=old.device)
+    offset = torch.where((o4 == 0) & (n4 == n_azim - 1), zero - 360.0,
+                         torch.where((o4 == n_azim - 1) & (n4 == 0),
+                                     zero + 360.0, zero))
+    steps = torch.arange(1, n_steps + 1, device=old.device)
+    a = (steps.float() / n_steps)[:, None]
+    X = old[None, :3] + (new[None, :3] - old[None, :3]) * a
+    V = old[None, 3:] + (new[None, 3:] - old[None, 3:]) * a
+    wrap = torch.where(steps[:, None] == n_steps, zero, offset * a)
+    return X, torch.cat((V[:, :1], V[:, 1:] + wrap), dim=1)
+
+
+def _write_rows(x, at: int, rows):
+    """x with rows [at, at + len(rows)) replaced (a copy); the start is
+    moved inside x as JAX's dynamic_update_slice moves it."""
+    at = _clamped_start(at, rows.shape[0], x.shape[0])
+    x = x.clone()
+    x[at:at + rows.shape[0]] = rows
+    return x
+
+
+def episode_commit(ep: DeviceEpisode, new_idx, X, V, R, T,
+                   dims: Tuple[int, ...]) -> DeviceEpisode:
+    """The episode after a move of K frames to new_idx: the new pose, its
+    visited flag, the histories."""
+    flat = episode_flat_index(new_idx, dims).reshape(1)
+    return ep._replace(
+        cam_idx=new_idx, visited=ep.visited.index_fill(0, flat, True),
+        X=X[-1:], V=V[-1:], R=R[-1:], T=T[-1:],
+        idx_history=_write_rows(ep.idx_history, ep.n_moves, new_idx[None]),
+        X_history=_write_rows(ep.X_history, ep.n_frames, X),
+        V_history=_write_rows(ep.V_history, ep.n_frames, V),
+        n_moves=ep.n_moves + 1, n_frames=ep.n_frames + X.shape[0])
+
+
+def init_device_episode(start_idx, tables: PoseSpaceTables, dims,
+                        n_elev: int, n_azim: int, max_moves: int,
+                        max_frames: int) -> DeviceEpisode:
+    """The episode at a start pose ((5,) int tensor): visited, one history
+    entry."""
+    start_idx = start_idx.to(torch.int64)
+    dev = start_idx.device
+    pose = episode_pose_from_idx(start_idx, tables, n_elev, n_azim)
+    X, V = pose[None, :3], pose[None, 3:]
+    R, T = get_camera_RT(X, V)
+    n_flat = int(np.prod([int(d) for d in dims]))
+    flat = episode_flat_index(start_idx, dims).reshape(1)
+    return DeviceEpisode(
+        cam_idx=start_idx,
+        visited=torch.zeros((n_flat,), dtype=torch.bool,
+                            device=dev).index_fill(0, flat, True),
+        X=X, V=V, R=R, T=T,
+        idx_history=_write_rows(torch.zeros((max_moves, 5), dtype=torch.int64,
+                                            device=dev), 0, start_idx[None]),
+        X_history=_write_rows(torch.zeros((max_frames, 3), device=dev), 0, X),
+        V_history=_write_rows(torch.zeros((max_frames, 2), device=dev), 0, V),
+        n_moves=1, n_frames=1)
+
+
+def fov_holds_points(poses, points, H: int, W: int, zfar: float,
+                     chunk: int = 128):
+    """Per pose (B, 5): whether any of points (N, 3) lies in its field of
+    view within 5 zfar; cameras ``chunk`` at a time."""
+    out = []
+    for s in range(0, poses.shape[0], chunk):
+        p = poses[s:s + chunk]
+        R, T = get_camera_RT(p[:, :3], p[:, 3:])
+        cams = FoVCamera.create(R, T, zfar=zfar)
+        out.append(points_in_fov_mask(points[None].expand(p.shape[0],
+                                                          *points.shape),
+                                      cams, H, W,
+                                      fov_range=5 * zfar).any(dim=-1))
+    return torch.cat(out)
+
+
+def episode_random_start(gen: torch.Generator, tables: PoseSpaceTables,
+                         dims, n_elev: int, n_azim: int, verts, proxy_points,
+                         H: int, W: int, zfar: float, batch: int = 1024,
+                         max_attempts: int = 8, index_batches=None):
+    """A random start pose: batches of ``batch`` lattice indices drawn from
+    ``gen`` (or the given ``index_batches``), up to ``max_attempts``; the
+    first unoccupied pose whose field of view holds a mesh vertex and a
+    proxy point, in the first batch that has one. Failing that, the first
+    unoccupied pose of the first batch that has one, else the first pose
+    drawn. One transfer to the host per batch drawn (in a scene with a
+    valid pose in the first batch, one per start).
+    Returns ((5,) int64 index, whether it is valid)."""
+    dev = tables.x_min.device
+    sel, fallback = None, False
+    for i in range(max_attempts):
+        if index_batches is not None:
+            if i == len(index_batches):
+                break
+            idx = torch.as_tensor(index_batches[i], dtype=torch.int64,
+                                  device=dev)
+        else:
+            idx = torch.stack([torch.randint(0, int(d), (batch,),
+                                             generator=gen, device=dev)
+                               for d in dims], dim=-1)
+        poses = episode_pose_from_idx(idx, tables, n_elev, n_azim)
+        unocc = ~_occupied_at(tables, idx, dims)
+        ok = unocc & fov_holds_points(poses, verts, H, W, zfar)
+        if proxy_points is not None:
+            ok = ok & fov_holds_points(poses, proxy_points, H, W, zfar)
+        hit, hit_unocc = torch.stack((ok.any(), unocc.any())).tolist()
+        if hit:
+            return idx[torch.argmax(ok.to(torch.uint8))], True
+        if hit_unocc and not fallback:
+            sel, fallback = idx[torch.argmax(unocc.to(torch.uint8))], True
+        if sel is None:
+            sel = idx[0]
+    return sel, False

@@ -41,6 +41,106 @@ class DepthBatchConfig(NamedTuple):
     hue_jitter_range: float = 0.05
 
 
+# ---------------------------------------------------------------------------
+# Frames on the device: the newest frames (ring) and a trajectory's (store)
+# ---------------------------------------------------------------------------
+
+
+class FrameRing(NamedTuple):
+    """The newest L captured frames on the device, oldest first: the
+    decision's and the supervision step's windows."""
+
+    images: torch.Tensor  # (L, H, W, 3)
+    zbuf: torch.Tensor  # (L, H, W, 1)
+    mask: torch.Tensor  # (L, H, W, 1) bool
+    R: torch.Tensor  # (L, 3, 3)
+    T: torch.Tensor  # (L, 3)
+    zfar: torch.Tensor  # (L,)
+
+
+def init_frame_ring(length: int, height: int, width: int, zfar: float,
+                    device=None) -> FrameRing:
+    """A ring of placeholder frames: black images, zbuf -1, empty masks,
+    R the identity, zfar ``zfar``."""
+    return FrameRing(
+        images=torch.zeros((length, height, width, 3), device=device),
+        zbuf=torch.full((length, height, width, 1), -1.0, device=device),
+        mask=torch.zeros((length, height, width, 1), dtype=torch.bool,
+                         device=device),
+        R=torch.eye(3, device=device).expand(length, 3, 3).clone(),
+        T=torch.zeros((length, 3), device=device),
+        zfar=torch.full((length,), float(zfar), device=device))
+
+
+def ring_push(ring: FrameRing, images, zbuf, mask, R, T, zfar) -> FrameRing:
+    """The ring with a capture batch appended, keeping the newest L frames
+    (a new ring; ``ring`` is left as it was). ``zfar`` is a number."""
+    L = ring.images.shape[0]
+    K = images.shape[0]
+    new = (images, zbuf, mask, R, T,
+           torch.full((K,), float(zfar), device=ring.zfar.device))
+    return FrameRing(*(torch.cat([a, b.to(a.dtype)])[-L:]
+                       for a, b in zip(ring, new)))
+
+
+def ring_frames(ring: FrameRing, n: int) -> Dict:
+    """The newest n frames as a ``create_batch_for_depth_model`` frames
+    dict."""
+    return {k: getattr(ring, k)[-n:] for k in FrameRing._fields}
+
+
+class FrameStore(NamedTuple):
+    """Every captured frame of a trajectory on the device (the device
+    memory's frames): tensors allocated once at capacity F, written in
+    place at the head ``n``, a host count known at append time."""
+
+    images: torch.Tensor  # (F, H, W, 3)
+    zbuf: torch.Tensor  # (F, H, W, 1)
+    mask: torch.Tensor  # (F, H, W, 1) bool
+    R: torch.Tensor  # (F, 3, 3)
+    T: torch.Tensor  # (F, 3)
+    n: int  # frames appended
+
+
+def init_frame_store(max_frames: int, height: int, width: int,
+                     device=None) -> FrameStore:
+    """An empty store: black images, zbuf -1, empty masks, R the identity."""
+    ring = init_frame_ring(max_frames, height, width, 0.0, device)
+    return FrameStore(ring.images, ring.zbuf, ring.mask, ring.R, ring.T, 0)
+
+
+def _clamped_start(start: int, size: int, capacity: int) -> int:
+    """A slice start as ``jax.lax.dynamic_slice`` and
+    ``dynamic_update_slice`` take it: a negative start counts from the end,
+    then the start is moved into [0, capacity - size]."""
+    if start < 0:
+        start += capacity
+    return min(max(start, 0), capacity - size)
+
+
+def store_append(store: FrameStore, images, zbuf, mask, R, T) -> FrameStore:
+    """Write a capture batch of K frames at the head, in place; returns the
+    store with ``n`` advanced by K. A batch that would pass the capacity
+    is written at capacity - K (the last rows), as JAX writes it."""
+    K = images.shape[0]
+    at = _clamped_start(store.n, K, store.images.shape[0])
+    for dst, src in zip(store[:5], (images, zbuf, mask, R, T)):
+        dst[at:at + K] = src
+    return store._replace(n=store.n + K)
+
+
+def store_window(store: FrameStore, last: int, n: int, zfar: float) -> Dict:
+    """Frames [last - n + 1 .. last] as a ``create_batch_for_depth_model``
+    frames dict (views of the store). A window that would start before
+    frame 0 or end past the capacity is moved as JAX moves it (see
+    ``_clamped_start``: one starting before frame 0 comes from the end)."""
+    lo = _clamped_start(last - (n - 1), n, store.images.shape[0])
+    out = {k: getattr(store, k)[lo:lo + n]
+           for k in ("images", "zbuf", "mask", "R", "T")}
+    out["zfar"] = torch.full((n,), float(zfar), device=store.images.device)
+    return out
+
+
 def create_batch_for_depth_model(cfg: DepthBatchConfig, frames: Dict,
                                  mode: str = "inference", device=None):
     """Slice a frame sequence ((n_total, H, W, C) etc., numpy arrays as

@@ -200,6 +200,11 @@ def run_test(params: Params, data_path: Optional[str] = None,
     port's ``.pt`` or a JAX ``.msgpack``) if it exists, else from a random
     init seeded by ``torch_seed``; ``vis_weights_path`` (a SconeVis
     variables msgpack) then replaces SconeVis's."""
+    if params.get("export_results", False):
+        raise NotImplementedError(
+            "export_results: the tester's exports (a PLY of the surface and "
+            "the Blender camera curves, utils/export.py) are not ported yet "
+            "(ROADMAP.md §A.4); set export_results to false")
     dev = resolve_device(device)
     data_path = data_path or params.get("dataset_path") or params.data_path
     rs = np.random.default_rng(params.get("random_seed", 42))

@@ -1,6 +1,6 @@
 """MACARONS online self-supervised training (port of
-macarons_tpu/trainers/train_macarons.py, its disk-memory path: one scene at
-a time, or scene groups on one device).
+macarons_tpu/trainers/train_macarons.py: one scene at a time, or scene
+groups on one device).
 
 Each trajectory alternates, per pose:
   1. the decision: depth inference on the newest frames, mapping and
@@ -12,13 +12,25 @@ Each trajectory alternates, per pose:
      mapping, the pseudo-GT coverage gains, and one SCONE optimizer step
      with the predictions on the pre-window state and the occupancy target
      from the post-carve field;
-then depth replay and SCONE replay from the disk memory and, at one pose, a
+then depth replay and SCONE replay from the memory and, at one pose, a
 remap. A scene group (``n_parallel_scenes`` > 1, ``run_trajectories_parallel``)
 takes each scene's decision and capture in turn, one depth step over the
 group's windows and one SCONE step on the mean of the scenes' losses.
 ``run_training`` adds the epochs: resume, the freeze and unfreeze
 transition, per-epoch random generators, validation, the four checkpoint
 flavours and the loss-peak rollback.
+
+The replay memory is the device-resident ``DeviceMemory`` unless the config
+sets ``device_memory`` false (then the disk ``Memory``). With it, each
+trajectory's frames and depths stay on the card, the episode (pose, visited
+set, histories, the argmax and the move) is a ``DeviceEpisode``, and
+neither the pose loop nor the memory asks the card for a number until the
+epoch ends: the memory is then written to disk once and the losses are
+read. The same trajectory function and step serve both memories: each
+memory comes with an episode adapter (``HOST_EPISODES`` for the disk memory,
+the host ``Camera``'s; ``DEVICE_EPISODES`` for the device one), which
+``run_training`` picks once and the pose loop asks for the start, the
+decision, the move and the saved poses.
 
 The tester (testers/scene.py) uses the inference pieces: ``setup_scene``,
 ``MacaronsRuntime``, ``capture_and_save``, ``move_and_capture`` and
@@ -63,15 +75,35 @@ from ..parallel.scene_dp import SceneSupervision, group_scone_step
 from ..scene import grid as G
 from ..scene import proxy as P
 from ..scene import runtime as R
-from ..scene.camera import Camera, PoseSpace, get_camera_RT
+from ..scene.camera import (
+    Camera,
+    DeviceEpisode,
+    PoseSpace,
+    PoseSpaceTables,
+    capture_ring,
+    episode_commit,
+    episode_interpolations,
+    episode_neighbors,
+    episode_pose_from_idx,
+    episode_random_start,
+    fov_holds_points,
+    get_camera_RT,
+    init_device_episode,
+    pose_space_tables,
+)
 from ..scene.depth_runtime import (
     DepthBatchConfig,
+    FrameRing,
     create_batch_for_depth_model,
     depth_loss,
+    init_frame_ring,
     many_depth_inference,
     perfect_depth_inference,
+    ring_frames,
+    ring_push,
+    store_append,
 )
-from ..scene.memory import Memory
+from ..scene.memory import DeviceMemory, Memory
 from ..utils.convert import load_module_weights
 from ..utils.device import resolve_device
 from ..utils.schedule import warmup_rate
@@ -92,10 +124,13 @@ class SceneState:
     camera: Camera
     proxy_distance: float
     device: torch.device
-    coverages: List[float] = field(default_factory=list)
-    # The newest captured frames on the device (oldest first), each a dict of
-    # (1, ...) tensors: the decision and supervision windows read them.
-    frames: List[Dict] = field(default_factory=list)
+    coverages: List = field(default_factory=list)
+    # The newest captured frames on the device: the decision's and the
+    # supervision step's windows.
+    ring: Optional[FrameRing] = None
+    # The trajectory on the card (device memory) and its lattice's tables.
+    episode: Optional[DeviceEpisode] = None
+    pose_tables: Optional[PoseSpaceTables] = None
 
     def __post_init__(self):
         dev = self.device
@@ -260,6 +295,12 @@ class MacaronsRuntime:
         self.scone_lr_epochs = list(params.get("scone_lr_epochs") or [])
         self.depth_opt_steps = 0
         self.scone_opt_steps = 0
+
+    def ring_length(self) -> int:
+        """Frames the ring keeps: the supervision window's and the
+        decision's, whichever is longer."""
+        return max(self.n_interpolation_steps
+                   + self.dcfg.n_alpha_for_supervision, 1 + self.dcfg.n_alpha)
 
     def bind_scene(self, cfg: G.GridConfig, table: R.CellIndexTable):
         """Point the occupancy fields at one scene's cell tables; a no-op
@@ -572,41 +613,72 @@ def supervision_signal(rt: MacaronsRuntime, scene: SceneState, depth, mask,
 
 def push_frames(rt: MacaronsRuntime, scene: SceneState, images, depth, mask,
                 R, T):
-    """Append captured frames to the scene's device window, keeping the
-    newest n_interpolation_steps + max(n_alpha_for_supervision, n_alpha)."""
-    for i in range(images.shape[0]):
-        scene.frames.append({"images": images[i:i + 1], "zbuf": depth[i:i + 1],
-                             "mask": mask[i:i + 1], "R": R[i:i + 1],
-                             "T": T[i:i + 1]})
-    keep = rt.n_interpolation_steps + max(rt.dcfg.n_alpha_for_supervision,
-                                          rt.dcfg.n_alpha)
-    del scene.frames[:-keep]
+    """Append captured frames to the scene's ring (a fresh one if it has
+    none), which keeps the newest ``rt.ring_length()``."""
+    if scene.ring is None:
+        scene.ring = init_frame_ring(rt.ring_length(), rt.H, rt.W,
+                                     rt.dcfg.zfar, images.device)
+    scene.ring = ring_push(scene.ring, images, depth, mask, R, T,
+                           rt.dcfg.zfar)
 
 
 def window_frames(rt: MacaronsRuntime, scene: SceneState, n: int) -> Dict:
-    """The newest ``n`` frames of the window, stacked as
+    """The newest ``n`` frames of the ring, stacked as
     Memory.load_frame_sequence stacks them."""
-    frames = scene.frames[-n:]
-    out = {k: torch.cat([f[k] for f in frames]) for k in frames[0]}
-    out["zfar"] = torch.full((n,), float(rt.dcfg.zfar), device=rt.device)
-    return out
+    return ring_frames(scene.ring, n)
 
 
 def start_trajectory(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
                      memory_path: str, rs: np.random.Generator,
                      start_idx=None):
     """A random valid start pose (unless given) and its 1 + n_alpha
-    captures, saved to the memory and kept in the window."""
+    captures, saved to the memory and pushed onto a fresh ring."""
     cam = scene.camera
     if start_idx is None:
         start_idx = cam.get_random_valid_pose(rs, scene.verts_dev,
                                               proxy_points=scene.proxy.points)
     cam.initialize(np.asarray(start_idx))
-    scene.frames = []
+    scene.ring = None
     for _ in range(1 + rt.dcfg.n_alpha):
         images, depth, mask = capture_and_save(scene, memory, memory_path)
         push_frames(rt, scene, images, depth, mask, cam.fov_camera.R,
                     cam.fov_camera.T)
+
+
+def _lattice(scene: SceneState):
+    """(tables on the card, dims, n_elev, n_azim) of the scene's lattice."""
+    cam = scene.camera
+    ps = cam.pose_space
+    if scene.pose_tables is None:
+        scene.pose_tables = pose_space_tables(ps, cam.occupied_poses,
+                                              scene.device)
+    return (scene.pose_tables, tuple(int(d) for d in ps.dims),
+            ps.pose_n_elev, ps.pose_n_azim)
+
+
+def start_trajectory_device(rt: MacaronsRuntime, scene: SceneState,
+                            memory: DeviceMemory, memory_path: str,
+                            gen: torch.Generator, max_moves: int):
+    """The device memory's start: fresh stores for the slot, a random valid
+    start pose drawn from ``gen`` (``episode_random_start``), the episode
+    there, and its 1 + n_alpha captures on a fresh ring and in the store."""
+    store = memory.begin_trajectory(memory_path)
+    tables, dims, n_elev, n_azim = _lattice(scene)
+    start, _ = episode_random_start(
+        gen, tables, dims, n_elev, n_azim, scene.verts_dev,
+        scene.proxy.points, rt.H, rt.W, rt.dcfg.zfar)
+    ep = init_device_episode(start, tables, dims, n_elev, n_azim, max_moves,
+                             memory.max_frames)
+    K = 1 + rt.dcfg.n_alpha
+    scene.ring = init_frame_ring(rt.ring_length(), rt.H, rt.W, rt.dcfg.zfar,
+                                 scene.device)
+    images, depth, mask, R_b, T_b, scene.ring = capture_ring(
+        scene.camera, scene.verts_dev, scene.faces_dev, ep.X.expand(K, 3),
+        ep.V.expand(K, 2), scene.ring, vert_colors=scene.colors_dev,
+        texture_atlas=scene.atlas_dev)
+    memory.update_store(memory_path, store_append(store, images, depth, mask,
+                                                  R_b, T_b))
+    scene.episode = ep
 
 
 def _phase(on_phase, pose_i, name):
@@ -615,12 +687,16 @@ def _phase(on_phase, pose_i, name):
 
 
 def scene_field(rt: MacaronsRuntime, scene: SceneState,
-                use_supervision_occ: bool = False):
-    """The occupancy field at the prediction camera ``fov_camera_0`` (the
-    carving pseudo-GT in its place with ``use_supervision_occ``), written
-    into the proxies' proba. Returns the scene field for the scorer."""
+                use_supervision_occ: bool = False,
+                prediction_camera: Optional[FoVCamera] = None):
+    """The occupancy field at the prediction camera (default the camera's
+    ``fov_camera_0``; the carving pseudo-GT in its place with
+    ``use_supervision_occ``), written into the proxies' proba. Returns the
+    scene field for the scorer."""
+    if prediction_camera is None:
+        prediction_camera = scene.camera.fov_camera_0
     proba, pred_mask, harmonics = rt.occupancy_field(
-        scene.proxy, scene.surface_scene, scene.camera.fov_camera_0)
+        scene.proxy, scene.surface_scene, prediction_camera)
     if use_supervision_occ:
         proba = scene.proxy.supervision_occ
         pred_mask = scene.proxy.out_of_field[:, 0] < 1.0
@@ -633,6 +709,11 @@ def backtrack_pose(cam: Camera) -> np.ndarray:
     """A lattice dead end: the previous pose, or the current one."""
     hist = cam.cam_idx_history
     return np.asarray(hist[-2] if len(hist) >= 2 else cam.cam_idx)
+
+
+def box_diagonal(scene: SceneState) -> float:
+    return float(np.linalg.norm(np.asarray(scene.cfg.x_max)
+                                - np.asarray(scene.cfg.x_min)))
 
 
 def candidate_cameras(rt: MacaronsRuntime, cam: Camera, valid_nbrs):
@@ -651,22 +732,20 @@ def nbv_choice(rt: MacaronsRuntime, scene: SceneState, fld, valid_nbrs,
     """The valid neighbour with the largest SconeVis coverage gain."""
     cam = scene.camera
     cand_cams, X_cand, n_cand = candidate_cameras(rt, cam, valid_nbrs)
-    box_diag = float(np.linalg.norm(np.asarray(scene.cfg.x_max)
-                                    - np.asarray(scene.cfg.x_min)))
     gains = rt.coverage_gains(*fld, cand_cams, X_cand, cam.fov_camera_0,
-                              box_diag, scene.cfg.resolution,
+                              box_diagonal(scene), scene.cfg.resolution,
                               rt.sensor_range, generator=gen)[:n_cand]
     return valid_nbrs[int(torch.argmax(gains))]
 
 
-def decide(rt: MacaronsRuntime, scene: SceneState, gen: torch.Generator,
-           warmup_phase: bool = False):
-    """The decision phase: depth inference on the newest 1 + n_alpha
-    frames, mapping and carving, the occupancy field (the carving pseudo-GT
-    in the warm-up phase), and the NBV scorer over the valid neighbours.
-    Returns (next pose index, scene field)."""
+def decision_field(rt: MacaronsRuntime, scene: SceneState,
+                   gen: torch.Generator, warmup_phase: bool = False,
+                   prediction_camera: Optional[FoVCamera] = None):
+    """The decision's world update: depth inference on the newest 1 +
+    n_alpha frames, mapping and carving, and the occupancy field at the
+    prediction camera (the carving pseudo-GT in the warm-up phase).
+    Returns the scene field."""
     params = rt.params
-    cam = scene.camera
     batch, alpha = create_batch_for_depth_model(
         rt.dcfg, window_frames(rt, scene, 1 + rt.dcfg.n_alpha), "inference",
         device=rt.device)
@@ -674,12 +753,71 @@ def decide(rt: MacaronsRuntime, scene: SceneState, gen: torch.Generator,
     mapping_update(rt, scene, depth, mask, err_mask, batch["R"], batch["T"],
                    gen, carving_tolerance=params.get("carving_tolerance", 0.0),
                    score_threshold=params.get("score_threshold", 1.0))
-    fld = scene_field(rt, scene, use_supervision_occ=warmup_phase)
+    return scene_field(rt, scene, use_supervision_occ=warmup_phase,
+                       prediction_camera=prediction_camera)
+
+
+def decide(rt: MacaronsRuntime, scene: SceneState, gen: torch.Generator,
+           warmup_phase: bool = False):
+    """The disk memory's decision: ``decision_field``, then the NBV scorer
+    over the valid neighbours (the host camera's). Returns (next pose
+    index, scene field)."""
+    cam = scene.camera
+    fld = decision_field(rt, scene, gen, warmup_phase)
     valid_nbrs = cam.get_valid_neighbors(cam.get_neighboring_poses(),
                                          scene.verts_dev)
     if len(valid_nbrs) == 0:
         return backtrack_pose(cam), fld
     return nbv_choice(rt, scene, fld, valid_nbrs, gen), fld
+
+
+def select_move(cand, gains, new_ok, visited_ok):
+    """The candidate with the largest gain among the new valid ones, or
+    among the visited ones if no new one is valid (slot 0 if none is).
+    Stays on the card."""
+    sel = torch.where(new_ok.any(), new_ok, visited_ok)
+    slot = torch.argmax(torch.where(sel, gains, float("-inf")))
+    return cand.index_select(0, slot.reshape(1))[0]
+
+
+def episode_camera(rt: MacaronsRuntime, ep: DeviceEpisode) -> FoVCamera:
+    return FoVCamera.create(ep.R, ep.T, zfar=rt.dcfg.zfar)
+
+
+def episode_choice(rt: MacaronsRuntime, scene: SceneState, fld,
+                   gen: torch.Generator):
+    """The device memory's choice: every neighbour move of the episode's
+    pose scored (per candidate, as the scorer samples), those whose field
+    of view holds a mesh vertex kept, ``select_move``. Returns the next
+    pose index, on the card."""
+    ep = scene.episode
+    tables, dims, n_elev, n_azim = _lattice(scene)
+    cand, new_ok, visited_ok = episode_neighbors(ep, tables, dims)
+    poses = episode_pose_from_idx(cand, tables, n_elev, n_azim)
+    fov_ok = fov_holds_points(poses, scene.verts_dev, rt.H, rt.W,
+                              rt.dcfg.zfar)
+    R_c, T_c = get_camera_RT(poses[:, :3], poses[:, 3:])
+    gains = rt.coverage_gains(
+        *fld, FoVCamera.create(R_c, T_c, zfar=rt.dcfg.zfar), poses[:, :3],
+        episode_camera(rt, ep), box_diagonal(scene), scene.cfg.resolution,
+        rt.sensor_range, generator=gen)
+    return select_move(cand, gains, new_ok & fov_ok, visited_ok)
+
+
+def episode_move(rt: MacaronsRuntime, scene: SceneState,
+                 memory: DeviceMemory, memory_path: str, next_idx):
+    """The device memory's move: the interpolated poses to ``next_idx``,
+    their capture onto the ring and into the store, the episode's commit."""
+    tables, dims, n_elev, n_azim = _lattice(scene)
+    ep = scene.episode
+    X, V = episode_interpolations(ep, next_idx, tables, n_elev, n_azim,
+                                  rt.n_interpolation_steps)
+    images, depth, mask, R_m, T_m, scene.ring = capture_ring(
+        scene.camera, scene.verts_dev, scene.faces_dev, X, V, scene.ring,
+        vert_colors=scene.colors_dev, texture_atlas=scene.atlas_dev)
+    memory.update_store(memory_path, store_append(
+        memory.store(memory_path), images, depth, mask, R_m, T_m))
+    scene.episode = episode_commit(ep, next_idx, X, V, R_m, T_m, dims)
 
 
 def group_supervision_batch(rt: MacaronsRuntime, scenes: List[SceneState]):
@@ -695,6 +833,83 @@ def group_supervision_batch(rt: MacaronsRuntime, scenes: List[SceneState]):
             {k: torch.cat([a[k] for _, a in per]) for k in per[0][1]})
 
 
+class HostEpisodes:
+    """The disk ``Memory``'s episodes: the pose, its history and the
+    decision on each scene's host ``Camera``, every capture saved to the
+    memory as it is taken, losses and coverages read per pose."""
+
+    read_per_pose = True
+
+    @staticmethod
+    def read(value):
+        return float(value)
+
+    def start(self, rt, scenes, memory, memory_paths, gen, rs, n_poses):
+        """Every scene's start drawn from ``rs`` before any is primed."""
+        starts = [s.camera.get_random_valid_pose(
+            rs, s.verts_dev, proxy_points=s.proxy.points) for s in scenes]
+        for scene, mp, start in zip(scenes, memory_paths, starts):
+            start_trajectory(rt, scene, memory, mp, rs, start_idx=start)
+
+    def decide(self, rt, scene, gen, warmup_phase):
+        """(next pose index, scene field, prediction camera)."""
+        cam = scene.camera
+        cam.fov_camera_0 = cam.fov_camera
+        pred = FoVCamera.create(cam.fov_camera_0.R, cam.fov_camera_0.T,
+                                zfar=rt.dcfg.zfar)
+        next_idx, fld = decide(rt, scene, gen, warmup_phase)
+        return next_idx, fld, pred
+
+    def move(self, rt, scene, memory, memory_path, next_idx):
+        images, depth, mask, batch_cam = move_and_capture(
+            scene, memory, memory_path, next_idx)
+        push_frames(rt, scene, images, depth, mask, batch_cam.R, batch_cam.T)
+
+    def save_poses(self, scene, memory, memory_path):
+        cam = scene.camera
+        memory.save_poses(memory_path, memory.current_epoch,
+                          np.concatenate(cam.X_cam_history, 0),
+                          np.concatenate(cam.V_cam_history, 0),
+                          np.stack(cam.cam_idx_history, 0))
+
+
+class DeviceEpisodes:
+    """The ``DeviceMemory``'s episodes: each scene's ``DeviceEpisode`` of
+    tensors, its captures appended to the memory's stores, losses and
+    coverages left on the card until the epoch's end."""
+
+    read_per_pose = False
+
+    @staticmethod
+    def read(value):
+        return value
+
+    def start(self, rt, scenes, memory, memory_paths, gen, rs, n_poses):
+        """Scene by scene, each start drawn from ``gen`` and primed on the
+        card."""
+        for scene, mp in zip(scenes, memory_paths):
+            start_trajectory_device(rt, scene, memory, mp, gen, n_poses + 1)
+
+    def decide(self, rt, scene, gen, warmup_phase):
+        """(next pose index on the card, scene field, prediction camera)."""
+        pred = episode_camera(rt, scene.episode)
+        fld = decision_field(rt, scene, gen, warmup_phase, pred)
+        return episode_choice(rt, scene, fld, gen), fld, pred
+
+    def move(self, rt, scene, memory, memory_path, next_idx):
+        episode_move(rt, scene, memory, memory_path, next_idx)
+
+    def save_poses(self, scene, memory, memory_path):
+        ep = scene.episode
+        memory.save_poses(memory_path, memory.current_epoch, ep.X_history,
+                          ep.V_history, ep.idx_history, n_moves=ep.n_moves,
+                          n_frames=ep.n_frames)
+
+
+HOST_EPISODES = HostEpisodes()
+DEVICE_EPISODES = DeviceEpisodes()
+
+
 def nbv_parallel_step(rt: MacaronsRuntime, scenes: List[SceneState],
                       memory: Memory, memory_paths: List[str], opts: Dict,
                       gen: torch.Generator, freeze_scone: bool = False,
@@ -702,9 +917,11 @@ def nbv_parallel_step(rt: MacaronsRuntime, scenes: List[SceneState],
                       online_learning: bool = True,
                       surface_distances: Optional[List[float]] = None,
                       n_cells_active: Optional[int] = None,
-                      on_phase: Optional[Callable] = None, pose_i: int = 0):
+                      on_phase: Optional[Callable] = None, pose_i: int = 0,
+                      episodes=None):
     """One NBV iteration of a scene group (a single scene is a group of
-    one): for each scene in turn the decision, the move and its capture;
+    one): for each scene in turn the decision, the move and its capture,
+    as ``episodes`` (default ``HOST_EPISODES``) runs them;
     one depth step over the group's supervision windows, each built from
     its own scene's frames and concatenated in scene order (BatchNorm takes
     its statistics over the whole batch); each scene's supervision signal
@@ -721,22 +938,17 @@ def nbv_parallel_step(rt: MacaronsRuntime, scenes: List[SceneState],
     def tag(name, s):
         return name if S == 1 else f"{name}/{s}"
 
+    episodes = episodes or HOST_EPISODES
     fields, pred_cams = [], []
     for s, (scene, mp) in enumerate(zip(scenes, memory_paths)):
         rt.bind_scene(scene.cfg, scene.cell_table)
-        cam = scene.camera
-        cam.fov_camera_0 = cam.fov_camera
-        pred_cams.append(FoVCamera.create(cam.fov_camera_0.R,
-                                          cam.fov_camera_0.T,
-                                          zfar=rt.dcfg.zfar))
         _phase(on_phase, pose_i, tag("decision", s))
-        next_idx, fld = decide(rt, scene, gen, warmup_phase)
+        next_idx, fld, pred_cam = episodes.decide(rt, scene, gen,
+                                                  warmup_phase)
         fields.append(fld)
+        pred_cams.append(pred_cam)
         _phase(on_phase, pose_i, tag("capture", s))
-        images, depth_c, mask_c, batch_cam = move_and_capture(
-            scene, memory, mp, next_idx)
-        push_frames(rt, scene, images, depth_c, mask_c, batch_cam.R,
-                    batch_cam.T)
+        episodes.move(rt, scene, memory, mp, next_idx)
 
     _phase(on_phase, pose_i, "depth_step")
     batch, alpha = group_supervision_batch(rt, scenes)
@@ -838,15 +1050,9 @@ def memory_scone_loop(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
         n_inside_fov=torch.as_tensor(info["n_inside_fov"], device=dev),
         n_behind_depth=torch.as_tensor(info["n_behind_depth"], device=dev))
 
-    cache: Dict[int, Dict] = {}
-
     def load_stack(nbs):
-        for nb in nbs:
-            if nb not in cache:
-                cache[nb] = memory.load_depth(memory_path, nb, traj)
-        return tuple(torch.as_tensor(np.concatenate([cache[nb][k]
-                                                     for nb in nbs]),
-                                     device=dev)
+        d = memory.depth_stack(memory_path, traj, nbs)
+        return tuple(torch.as_tensor(d[k], device=dev)
                      for k in ("depth", "mask", "error_mask", "R", "T"))
 
     carving = dict(carving_tolerance=params.get("carving_tolerance", 0.0),
@@ -855,8 +1061,7 @@ def memory_scone_loop(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
 
     used = set(build_nbs)
     last_nb = build_nbs[-1]
-    box_diag = float(np.linalg.norm(np.asarray(scene.cfg.x_max)
-                                    - np.asarray(scene.cfg.x_min)))
+    box_diag = box_diagonal(scene)
     loss = None
     for i_loop in range(n_loops):
         if params.get("random_poses_in_memory_scene_loops", False):
@@ -942,9 +1147,11 @@ def run_trajectories_parallel(rt: MacaronsRuntime, scenes: List[SceneState],
                               n_memory_loops: int = 0,
                               remap_at: Optional[int] = None,
                               verbose: bool = False,
-                              on_phase: Optional[Callable] = None):
+                              on_phase: Optional[Callable] = None,
+                              episodes=None):
     """One trajectory in each scene of a group (``run_trajectory`` runs a
-    group of one), in lockstep, on one device: every scene's start drawn from ``rs`` before any is primed, then per
+    group of one), in lockstep, on one device: the starts as ``episodes``
+    (default ``HOST_EPISODES``) draws and primes them, then per
     pose each scene's surface refill every recompute_surface_every_n_loop
     poses, ``nbv_parallel_step``, n_memory_loops depth replays of the
     group's size, SCONE replay scene by scene, and the remap of each scene
@@ -952,15 +1159,14 @@ def run_trajectories_parallel(rt: MacaronsRuntime, scenes: List[SceneState],
     the memory. ``on_phase(pose_i, name)`` is called at the group pose's
     phase boundaries (``nbv_parallel_step``'s, then "depth_replay",
     "scone_replay", "remap", "done"). Returns the per-pose losses (one
-    entry per group pose) as floats; each ``scene.coverages`` gets its
-    pose's coverage."""
+    entry per group pose); each ``scene.coverages`` gets its pose's
+    coverage. Unless ``episodes.read_per_pose`` these stay tensors on the
+    card (the epoch reads them after its flush) and ``verbose`` prints
+    nothing per pose; else they are floats."""
     params = rt.params
     S = len(scenes)
-    starts = [s.camera.get_random_valid_pose(rs, s.verts_dev,
-                                             proxy_points=s.proxy.points)
-              for s in scenes]
-    for scene, mp, start in zip(scenes, memory_paths, starts):
-        start_trajectory(rt, scene, memory, mp, rs, start_idx=start)
+    episodes = episodes or HOST_EPISODES
+    episodes.start(rt, scenes, memory, memory_paths, gen, rs, n_poses)
     curr_dists = [R.curriculum_sampling_distances(
         max(n_poses, 2), s.proxy_distance, s.cfg.cell_size) for s in scenes]
     curr_cells = R.curriculum_sampling_cell_number(
@@ -982,7 +1188,7 @@ def run_trajectories_parallel(rt: MacaronsRuntime, scenes: List[SceneState],
             online_learning=online_learning,
             surface_distances=[float(d[pose_i]) for d in curr_dists],
             n_cells_active=int(curr_cells[pose_i]), on_phase=on_phase,
-            pose_i=pose_i)
+            pose_i=pose_i, episodes=episodes)
         for k in losses:
             losses[k].append(step[k])
 
@@ -1005,22 +1211,18 @@ def run_trajectories_parallel(rt: MacaronsRuntime, scenes: List[SceneState],
         for scene in scenes:
             cov, _ = G.scene_coverage(scene.cfg, scene.gt_scene,
                                       scene.surface_scene)
-            scene.coverages.append(float(cov))
+            scene.coverages.append(episodes.read(cov))
         _phase(on_phase, pose_i, "done")
-        if verbose:
+        if verbose and episodes.read_per_pose:
             shown = {k: float(v[-1]) for k, v in losses.items()}
             covs = [f"{s.coverages[-1]:.4f}" for s in scenes]
             print(f"  pose {pose_i}: losses {shown} coverages {covs}")
 
     for scene, mp in zip(scenes, memory_paths):
-        cam = scene.camera
         memory.save_surface_scene(mp, scene.surface_scene)
         memory.save_occupancy_field(mp, scene.proxy)
-        memory.save_poses(mp, memory.current_epoch,
-                          np.concatenate(cam.X_cam_history, 0),
-                          np.concatenate(cam.V_cam_history, 0),
-                          np.stack(cam.cam_idx_history, 0))
-    return {k: [float(v) for v in vs] for k, vs in losses.items()}
+        episodes.save_poses(scene, memory, mp)
+    return {k: [episodes.read(v) for v in vs] for k, vs in losses.items()}
 
 
 def run_trajectory(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
@@ -1030,8 +1232,8 @@ def run_trajectory(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
     ``run_trajectories_parallel`` of a group of one, its phases named
     "decision", "capture", "depth_step", "scone_step", "depth_replay",
     "scone_replay", "remap" and "done". Returns the per-pose losses
-    {"depth", "occ", "cov"} as floats; ``scene.coverages`` gets each pose's
-    coverage."""
+    {"depth", "occ", "cov"} (tensors with ``DEVICE_EPISODES``, else
+    floats); ``scene.coverages`` gets each pose's coverage."""
     return run_trajectories_parallel(rt, [scene], memory, [memory_path],
                                      opts, gen, rs, n_poses, **kw)
 
@@ -1066,6 +1268,40 @@ def scene_group_size(params: Params) -> int:
     return group
 
 
+# The card's bytes a training pose takes beside the models and the device
+# memory's stores: the default training config's pose peaked at 34-37 GiB
+# on an H100 (PERF.md, section 5), models and the smoke's small stores
+# included.
+DEVICE_MEMORY_HEADROOM_GIB = 36.0
+
+
+def check_device_memory_fits(memory: DeviceMemory,
+                             headroom_gib: float = DEVICE_MEMORY_HEADROOM_GIB):
+    """Raise, before anything is stored, if ``memory``'s stores for every
+    (scene, slot) plus ``headroom_gib`` GiB for training exceed what the
+    card has free now (its free bytes and the allocator's cached ones).
+    The stores are allocated a slot at a time as trajectories begin, so
+    without this a run that does not fit fails epochs in. Nothing is
+    checked off the card."""
+    dev = memory.device
+    if dev.type != "cuda":
+        return
+    free, _ = torch.cuda.mem_get_info(dev)
+    free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    need = memory.full_nbytes()
+    headroom = int(headroom_gib * 2 ** 30)
+    if need + headroom > free:
+        raise RuntimeError(
+            f"the device memory needs {need / 2 ** 30:.2f} GiB for "
+            f"{len(memory.scene_memory_paths)} scenes x "
+            f"{memory.n_trajectories} trajectory slots of "
+            f"{memory.max_frames} frames, and training about "
+            f"{headroom_gib:.1f} GiB more, but "
+            f"the card has {free / 2 ** 30:.2f} GiB free: set "
+            f'"device_memory": false to keep the replay memory on disk, or '
+            f"train fewer scenes, slots or poses")
+
+
 def run_training(params: Params, data_path: Optional[str] = None,
                  weights_dir: str = "weights/macarons",
                  memory_root: Optional[str] = None,
@@ -1075,8 +1311,15 @@ def run_training(params: Params, data_path: Optional[str] = None,
     """The online trainer on ``device`` ("cuda" unless the caller
     asks for the CPU). Epoch e draws from numpy's default_rng([random_seed,
     e]) and a torch generator seeded from (torch_seed, e), so a run resumed
-    at epoch e draws what one process reaching e draws. ``on_phase``, if
-    given, is handed to every training trajectory (see run_trajectory) as
+    at epoch e draws what one process reaching e draws. The replay memory
+    is a ``DeviceMemory`` sized for a trajectory (1 + n_alpha + poses x
+    interpolation steps frames, as many depths), hydrated from the memory
+    directories on resume and written to them at the end of every epoch,
+    unless ``device_memory`` is false: then a disk ``Memory`` per epoch.
+    A device memory whose stores would not fit on the card beside training
+    raises at once (``check_device_memory_fits``). Validation always uses a
+    disk ``Memory``. ``on_phase``, if given, is
+    handed to every training trajectory (see run_trajectory) as
     ``on_phase(epoch, pose_i, name)``. Returns (model, per-epoch mean
     losses)."""
     dev = resolve_device(device)
@@ -1148,11 +1391,27 @@ def run_training(params: Params, data_path: Optional[str] = None,
     all_paths = [os.path.join(mem_root, dataset[i]["scene_name"], mem_dir)
                  for i in range(len(dataset))]
     n_poses = params.get("n_poses_in_trajectory", 100)
+    dmem = None
+    episodes = HOST_EPISODES
+    if params.get("device_memory", True):
+        traj_frames = (1 + params.get("n_alpha", 2)
+                       + n_poses * params.get("n_interpolation_steps", 4))
+        dmem = DeviceMemory(
+            all_paths, current_epoch=start_epoch,
+            n_trajectories=params.get("n_memory_trajectories", 1),
+            max_frames=traj_frames, max_depths=max(traj_frames, 1),
+            height=params.get("image_height", 256),
+            width=params.get("image_width", 456),
+            zfar=params.get("zfar", 750.0), device=dev)
+        check_device_memory_fits(dmem)
+        episodes = DEVICE_EPISODES
+        if not params.get("start_from_scratch", True):
+            dmem.hydrate_from_disk()
     common = dict(online_learning=params.get("online_learning", True),
                   n_memory_loops=params.get("n_memory_loops", 0),
                   remap_at=params.get("remap_every_n_poses",
                                       params.get("remap_at_pose")),
-                  verbose=verbose)
+                  verbose=verbose, episodes=episodes)
 
     for epoch in range(start_epoch, params.get("epochs", 1)):
         t0 = time.time()
@@ -1176,8 +1435,13 @@ def run_training(params: Params, data_path: Optional[str] = None,
         scene_indices = rs.permutation(len(dataset))
         if max_scenes_per_epoch:
             scene_indices = scene_indices[:max_scenes_per_epoch]
-        memory = Memory(all_paths, current_epoch=epoch,
-                        n_trajectories=params.get("n_memory_trajectories", 1))
+        if dmem is not None:
+            dmem.current_epoch = epoch
+            memory = dmem
+        else:
+            memory = Memory(all_paths, current_epoch=epoch,
+                            n_trajectories=params.get("n_memory_trajectories",
+                                                      1))
         hook = (None if on_phase is None else
                 lambda pose_i, phase, e=epoch: on_phase(e, pose_i, phase))
 
@@ -1208,11 +1472,22 @@ def run_training(params: Params, data_path: Optional[str] = None,
                                       gen, rs, n_poses=n_poses, **kw)
             for k in epoch_losses:
                 epoch_losses[k] += traj[k]
-            if verbose:
+            if verbose and episodes.read_per_pose:
                 covs = ", ".join(f"{s.name} {s.coverages[-1]:.4f}"
                                  for s in scenes)
                 print(f"epoch {epoch}: final coverage {covs}")
+            elif verbose:
+                print(f"epoch {epoch}: {[s.name for s in scenes]} done (the "
+                      f"losses are read at the end of the epoch)")
 
+        # The epoch's end: the device memory goes to disk (the disk memory's
+        # queued writes land), then the losses come to the host.
+        if dmem is not None:
+            dmem.flush_to_disk()
+        else:
+            memory.flush()
+        epoch_losses = {k: [float(v) for v in vs]
+                        for k, vs in epoch_losses.items()}
         mean_depth = (float(np.mean(epoch_losses["depth"]))
                       if epoch_losses["depth"] else 0.0)
         all_train_losses.append({k: float(np.mean(v)) if v else 0.0

@@ -115,7 +115,8 @@ def port_trajectory(log):
     """The port trainer's run_trajectory, scripted."""
     def run(rt, scene, memory, memory_path, opts, gen, rs, n_poses,
             freeze_scone=False, warmup_phase=False, online_learning=True,
-            n_memory_loops=0, remap_at=None, verbose=False, on_phase=None):
+            n_memory_loops=0, remap_at=None, verbose=False, on_phase=None,
+            episodes=None):
         e = memory.current_epoch
         model = rt.model
         log.append({"epoch": e, "online": online_learning,

@@ -154,7 +154,7 @@ def test_group_depth_step():
     opts = create_optimizers(params, model)
     scenes = []
     for fr in frames:
-        scene = types.SimpleNamespace(frames=[])
+        scene = types.SimpleNamespace(ring=None)
         TM.push_frames(rt, scene, *(torch.as_tensor(fr[k]) for k in (
             "images", "zbuf", "mask", "R", "T")))
         scenes.append(scene)
@@ -187,7 +187,7 @@ def test_group_depth_step():
         np.testing.assert_array_equal(err[sl].numpy(), np.asarray(jerr)[sl])
         # The scene's slice of the batch is its own window's batch.
         own, own_alpha = TM.create_batch_for_depth_model(
-            rt.dcfg, TM.window_frames(rt, scenes[s], len(scenes[s].frames)),
+            rt.dcfg, TM.window_frames(rt, scenes[s], rt.ring_length()),
             "supervision")
         for k in ("images", "R", "T", "mask"):
             torch.testing.assert_close(batch[k][sl], own[k], rtol=0, atol=0)

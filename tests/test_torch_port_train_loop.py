@@ -5,10 +5,11 @@ Memory: files written by one package are read by the other, key for key,
 and the same ``np.random.Generator`` picks the same replay frames and
 scenes in both. Training: synth_00 at tiny widths with ManyDepth, the
 default training config's alphas, augmentation and mirroring, two
-rotating memory trajectories, a remap at pose 2; one epoch, then a resumed
-run to two epochs in the same process, with depth replay and SCONE replay
-in the second. The checkpoints and memory files sit where the JAX
-package's trainer puts them (tests/test_train_macarons.py).
+rotating memory trajectories, a remap at pose 2, the disk memory; one
+epoch, then a resumed run to two epochs in the same process, with depth
+replay and SCONE replay in the second (the device memory's run is in
+test_torch_port_device_memory.py). The checkpoints and memory files sit
+where the JAX package's trainer puts them (tests/test_train_macarons.py).
 """
 
 import json
@@ -46,6 +47,7 @@ TRAIN = dict(
     n_memory_trajectories=2, n_memory_scene_loops=1,
     n_poses_in_memory_scene_loops=2, n_max_memory_depths_for_partial_pc=3,
     remap_at_pose=2, load_obj_textures=False, axis_to_mirror=[0],
+    device_memory=False,
 )
 N_FRAMES = 1 + TRAIN["n_alpha"] + (TRAIN["n_poses_in_trajectory"]
                                    * TRAIN["n_interpolation_steps"])
@@ -110,8 +112,7 @@ def test_memory_shared_with_jax(tmp_path, writer):
                            else (JMemory, Memory))
     w = write_cls([path], n_trajectories=2)
     fill_memory(w, path, np.random.default_rng(0))
-    if writer == "jax":
-        w.flush()
+    w.flush()  # both packages queue their writes
     r = read_cls([path], n_trajectories=2)
     for traj in range(2):
         assert r.n_frames(path, traj) == w.n_frames(path, traj) == 7
