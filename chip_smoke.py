@@ -2,6 +2,7 @@
 
 Usage: python3 chip_smoke.py
        python3 chip_smoke.py --depth-holds N   (only the depth hold, N times)
+       python3 chip_smoke.py --demos           (only phase_demos)
        python3 chip_smoke.py --group-times     (only scene groups 1, 2, 4
                                                 with the disk memory and 1,
                                                 2 with the device memory
@@ -18,6 +19,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      coefficients) against its plain version at the SCONE step's shapes, at
      odd sizes, 5 cameras, the poles and the pads, and its basis against
      the forward kernel's, bit for bit;
+  2b. demos: the port's last modules through their entry points on
+     synth_00 subdivided to 59,392 faces at the default test config's
+     widths (phase_demos): the macarons demo's run part (3 NBV steps,
+     ManyDepth), its PLY and camera curves read back; the tester with
+     export_results; a DemoSession stepped, reset and stepped under
+     profile_trace (the trace names sh_visibility_kernel); the scone
+     demo's run part on a suite mesh in ShapeNet's layout; the
+     shared-sample agreement tool with --trials 5 --bench; each part's
+     launches counted;
   3. drive the nbv scene-exploration trajectory at the default test config's
      widths on the generated synthetic scene synth_00 (232 faces: scan
      capture), with random SCONE weights from a seed, and check its outputs;
@@ -56,10 +66,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      through the native loader and through np.load); one depth step (B 1:
      the card's float64 gradient against the CPU's, its float32 one against
      the step's float32 noise from one-ulp replicas, TF32 off) and one
-     SCONE step on the card
-     against the CPU, the SCONE step's inputs saved under chiprun_out/ and
-     what sets the card's SconeOcc error printed (its kNN and max-pool
-     picks against float64's); the depth step at B 4 and the SCONE step
+     SCONE step on the card against the CPU's float64 and float32 runs,
+     both taking the card's kNN and max-pool picks, every pick where the
+     card differs from float64 a near-tie (TIE_REL; the flips excused and
+     their gaps printed), the SCONE step's inputs saved under
+     chiprun_out/; the depth step at B 4 and the SCONE step
      timed alone; then depth_pretrain: the depth pretrainer over the train
      phase's frames at 256x456 with 96 planes, batch 4 (an epoch, a resumed
      second, an epoch with learn_pose), each checkpoint reloaded two ways,
@@ -75,7 +86,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      resumed epoch with depth replay at twice the samples and SCONE
      replay scene by scene): one depth step over both scenes' windows and
      one SCONE step on the mean of their losses per group pose, the checks
-     of phase_train_group, one group SCONE step held card against CPU,
+     of phase_train_group, one group SCONE step held card against CPU (as
+     the train phase's),
      times per scene-pose, the replay split and the peak memory;
   9. time each kernel at the shapes of the scene-scale path (B3 at the
      scorer's first pose, at the suite scorer's most frequent
@@ -113,6 +125,7 @@ each of its rows gives the launches at its own shape. Needs CUDA; never falls
 back to the CPU.
 """
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -812,6 +825,19 @@ def phase_raster_kernels(gen):
     return worst
 
 
+def first_move(traj, scene, params):
+    """The first move of trajectory ``traj`` (its n_interpolation_steps
+    frames after the start) on ``scene``'s mesh, projected on the card.
+    Returns (the projected faces, the image size, the cameras)."""
+    steps = params.n_interpolation_steps
+    X = torch.tensor(traj["X_cam"][1:1 + steps], device="cuda")
+    V = torch.tensor(traj["V_cam"][1:1 + steps], device="cuda")
+    cam = FoVCamera.create(*get_camera_RT(X, V), zfar=params.zfar)
+    size = (params.image_height, params.image_width)
+    return (rast.project_fv_batch(scene.verts_dev, scene.faces_dev, cam),
+            size, cam)
+
+
 def phase_scene_render(run):
     """One move of the scene-scale trajectory rasterized on the card and on
     the CPU through the tiled path (kernels vs plain twins). From the same
@@ -819,14 +845,8 @@ def phase_scene_render(run):
     projection (the matmuls round differently) a pixel may change face where
     two faces tie within ulps: on the edges shared by the subdivided mesh's
     coplanar neighbours. That share is printed and must stay below 1e-3."""
-    traj, scene, params = run["traj"], run["scene"], run["params"]
-    steps = params.n_interpolation_steps
-    X = torch.tensor(traj["X_cam"][1:1 + steps], device="cuda")
-    V = torch.tensor(traj["V_cam"][1:1 + steps], device="cuda")
-    R, T = get_camera_RT(X, V)
-    cam = FoVCamera.create(R, T, zfar=params.zfar)
-    size = (params.image_height, params.image_width)
-    f9 = rast.project_fv_batch(scene.verts_dev, scene.faces_dev, cam)
+    scene, steps = run["scene"], run["params"].n_interpolation_steps
+    f9, size, cam = first_move(run["traj"], scene, run["params"])
     t0 = time.perf_counter()
     card = rast._rasterize_tiled(f9, size, TILE, 1024, True)
     torch.cuda.synchronize()
@@ -1244,18 +1264,28 @@ def net_copy(net, dev, dtype):
     return None if net is None else copy.deepcopy(net).to(dev, dtype)
 
 
-def fp32_errors(out, nets):
+def fp32_faults(out, nets):
     """Per network: the card's and the CPU's float32 gradient error against
-    the float64 one; fails unless the card's is within the slack."""
+    the float64 one. Returns (the errors, the faults: one line per network
+    whose card error is beyond the slack)."""
     ref, card, cpu = out[RUNS[2]], out[RUNS[0]], out[RUNS[1]]
-    errs = {}
+    errs, faults = {}, []
     for name in nets:
         e_card = grad_error(card[name], ref[name])
         e_cpu = grad_error(cpu[name], ref[name])
         errs[f"{name}_grad_card"], errs[f"{name}_grad_cpu"] = e_card, e_cpu
         if not e_card <= max(STEP_REL, FP32_SLACK * e_cpu):
-            fail(f"the {name} gradient on the card is further from the "
-                 f"float64 one than the CPU's float32: {errs}")
+            faults.append(f"the {name} gradient on the card is further "
+                          "from the float64 one than the CPU's float32")
+    return errs, faults
+
+
+def fp32_errors(out, nets):
+    """``fp32_faults``' errors; fails unless the card's are within the
+    slack."""
+    errs, faults = fp32_faults(out, nets)
+    if faults:
+        fail(f"{faults[0]}: {errs}")
     return errs
 
 
@@ -1394,16 +1424,74 @@ def phase_depth_holds(n):
           f"noise: {ratios}", flush=True)
 
 
-def hold_scone_step(params, model, rt, args, kw, gen, n_cells_active=5):
-    """One SCONE optimizer step from one state in each of RUNS: ``args``/
-    ``kw`` are a recorded scone_train_step call; the cell-ranking noise and
-    the Monte-Carlo sample (points drawn among the occupied ones) are drawn
-    once and given to every run. The state is saved (save_scone_step) and
-    run by replay_scone_step. The card's losses within rtol 1e-3 of the
-    CPU's (SconeOcc's kNN and both networks' attention reduce in another
-    order), its gradients of SconeOcc and SconeVis as close to the float64
-    ones as fp32_errors asks, and one launch of the B3 backward kernel.
-    Returns the errors."""
+# The SCONE hold, conditioned on the card's discrete picks. SconeOcc takes
+# discrete decisions in float arithmetic: each query's k nearest cloud
+# points (kNN) and the max-pool of each point transformer's Dense
+# outputs. Where two candidates lie within float32 rounding of each other,
+# the card (another summation order) can pick the other one: the gradient
+# then follows another point, and the card's float32 gradient strays from
+# the float64 one far more than the CPU's float32 does (once one max-pool
+# flip at 3.3e-8 of its column's maximum sent it to 2.2e-4 of max |g|,
+# PERF.md §6).
+# So the CPU runs that the card is held to take the card's own picks (kNN
+# neighbours and max-pool points, forced; knn_picks, pool_picks), and each
+# pick where the card differs from what the float64 run would pick itself
+# must be a near-tie: its gap, read from the float64 run's values, at most
+# TIE_REL. A flip beyond it is a fault, never excused.
+#
+# TIE_REL, from float32 rounding of the sums in front of the picks. A
+# max-pool compares outputs y = sum_i w_i z_i + b of a Dense of input width
+# n = 128 (SconeOcc's pts_embedding_dim, every point transformer's).
+# Summed in float32 in any order, y is off by at most about n float32
+# rounding units of S = sum_i |w_i z_i| + |b|, the magnitude of its terms
+# (not of y: the terms cancel), so two outputs closer than n ulps (2**-23
+# relative) of S can be ordered either way; with a margin of 4 for the
+# rounding of the inputs z themselves, TIE_REL = 4 x 128 x 2**-23 = 6.1e-5
+# of S, the larger S of the two points. A kNN pick compares squared
+# distances |q|^2 + |p|^2 - 2 q.p (ops/knn.py) over 3 coordinates, whose
+# float32 rounding is relative to |q|^2 + |p|^2, for the same reason; the
+# same TIE_REL bounds it, looser than its 3 terms need. (Gaps relative to
+# |column maximum| or to the k-th distance ignore the cancellation: at
+# |column maximum| the first check on the card found sound flips at
+# 7.1e-4, PERF.md §6.) Checked on the card by `python3 scone_holds.py N`:
+# the gaps of the card's flips over sound states, and two planted faults
+# (a pick moved to its column's smallest value, B3's backward scaled by
+# 1 + 1e-3), both of which must fail the hold.
+TIE_REL = 4 * 128 * 2.0 ** -23
+
+
+def near_ties(gaps, tie_rel=TIE_REL):
+    """``gaps``: per kind of pick ("knn", "pool"), the relative gaps of the
+    card's flips (a tensor or sequence). Returns, per kind, the sorted gaps
+    above ``tie_rel``: empty lists when every flip is a near-tie."""
+    return {kind: sorted(float(v) for v in torch.as_tensor(g).reshape(-1)
+                         if not v <= tie_rel)
+            for kind, g in gaps.items()}
+
+
+def gap_summary(gaps):
+    """Per kind of pick: the number of flips and the largest gap."""
+    return {kind: (int(torch.as_tensor(g).numel()),
+                   float(torch.as_tensor(g).max()) if len(g) else 0.0)
+            for kind, g in gaps.items()}
+
+
+def print_excused(tag, errs):
+    """The line that shows every excuse: how many flips the hold excused,
+    by kind, and the largest gap of each."""
+    flips = errs["flips"]
+    print(f"[{tag}] SCONE hold: {sum(n for n, _ in flips.values())} card "
+          "picks differ from float64's, excused as near-ties (TIE_REL "
+          f"{TIE_REL:.3e}): " + ", ".join(
+              f"{k} {n} (largest gap {g:.3e})" for k, (n, g) in flips.items()),
+          flush=True)
+
+
+def scone_state(params, model, rt, args, kw, gen, n_cells_active=5):
+    """A recorded scone_train_step call (``args``/``kw``) as a state that
+    scone_stepper runs: the cell-ranking noise and the Monte-Carlo sample
+    (points drawn among the occupied ones) drawn once from ``gen``, on the
+    CPU with the config, the cell tables and both networks' weights."""
     args = args[1:]  # the recorded optimizer is the trainer's
     # The ranking's first n_cells_active cells are the first ones of any
     # longer ranking by the same noise: rank only those.
@@ -1414,55 +1502,129 @@ def hold_scone_step(params, model, rt, args, kw, gen, n_cells_active=5):
     pool = torch.nonzero((occ[:, 0] > rt.coverage_gain.min_occ) & valid)[:, 0]
     n_cams = args[4].R.shape[0]
     kw = dict(kw, n_cells_active=n_cells_active, gen=None,
-              cell_noise=torch.rand(rt._tables.slots.shape[0], device="cuda",
-                                    generator=gen),
+              cell_noise=torch.rand(rt._tables.slots.shape[0],
+                                    device=gen.device, generator=gen),
               sample_idx=pool[torch.randint(
                   len(pool), (n_cams, rt.coverage_gain.seq_len),
-                  device="cuda", generator=gen)])
-    state = {"params": params.to_dict(), "args": _to(args, "cpu"),
-             "kw": _to(kw, "cpu"), "tables": _to(rt._tables, "cpu"),
-             "occ": _to(model.occ.state_dict(), "cpu"),
-             "vis": _to(model.vis.state_dict(), "cpu")}
-    out = replay_scone_step(state)
-    save_scone_step(os.path.join(HELD_DIR, "scone_step.pt.gz"), state,
-                    out[RUNS[0]])
-    card, cpu = out[RUNS[0]]["losses"], out[RUNS[1]]["losses"]
-    errs = {"occ_loss": cpu[0], "cov_loss": cpu[1],
-            "loss_rel": max(abs(a - b) / max(abs(b), 1e-30)
-                            for a, b in zip(card, cpu))}
-    if not (all(np.isfinite(card)) and cpu[0] > 0 and cpu[1] > 0
-            and errs["loss_rel"] <= 1e-3):
-        fail(f"the SCONE step on the card and on the CPU differ: {errs}")
-    errs.update(fp32_errors(out, ["occ", "vis"]))
+                  device=gen.device, generator=gen)])
+    return {"params": params.to_dict(), "args": _to(args, "cpu"),
+            "kw": _to(kw, "cpu"), "tables": _to(rt._tables, "cpu"),
+            "occ": _to(model.occ.state_dict(), "cpu"),
+            "vis": _to(model.vis.state_dict(), "cpu")}
+
+
+def hold_scone_step(params, model, rt, args, kw, gen, n_cells_active=5):
+    """One SCONE optimizer step from one state (``scone_state``: the
+    recorded call, its draws drawn once) on the card, then on the CPU in
+    float64 and float32, both taking the card's kNN and max-pool picks
+    (``hold_scone_runs``). The state is saved (save_scone_step). The
+    card's losses within rtol 1e-3 of the CPU's (SconeOcc's kNN and both
+    networks' attention reduce in another order), every flip a near-tie,
+    its gradients of SconeOcc and SconeVis as close to the float64 ones as
+    fp32_errors asks (``scone_verdict``), and one launch of the B3 backward
+    kernel. Returns the errors."""
+    state = scone_state(params, model, rt, args, kw, gen, n_cells_active)
+    card, cpu, ref = hold_scone_runs(scone_stepper(state))
+    save_scone_step(os.path.join(HELD_DIR, "scone_step.pt.gz"), state, card)
+    errs, faults = scone_verdict(card, cpu, ref)
+    if faults:
+        fail(f"the SCONE step on the card: {'; '.join(faults)}: {errs}")
+    print_excused("train", errs)
     return errs
 
 
-def replay_scone_step(state):
-    """The SCONE step of ``state`` (hold_scone_step's, or one that
-    load_scone_step read from a file) in each of RUNS: per run its losses,
-    its gradients of SconeOcc and SconeVis, and SconeOcc's kNN and
-    max-pool picks. Then what sets the card's gradient error, printed: a
-    second card run tells rounding that changes from run to run (atomic
-    accumulation) from arithmetic the card repeats; the parameters the
-    largest errors sit in, card and CPU, name their layers; the kNN query
-    rows and the max-pool maxima whose picks differ from the float64
-    run's, on the card and on the CPU, and the card's error when it takes
-    the float64 run's picks, say whether a near-tie that float32 rounds
-    the other way sets it."""
+def scone_verdict(card, cpu, ref):
+    """The SCONE hold's verdict on three runs of one step: ``card``
+    (float32 on the card), ``cpu`` and ``ref`` (float32 and float64 on the
+    CPU, both forced to the card's picks; ``ref["gaps"]`` the gaps of the
+    card's flips, as knn_picks and pool_picks record them). The card's
+    losses within rtol 1e-3 of the CPU's, finite, and positive on the CPU;
+    every flip a near-tie; its gradients held to ``ref`` by fp32_faults'
+    rule against ``cpu``. Returns (errors, faults)."""
+    c, p = card["losses"], cpu["losses"]
+    errs = {"occ_loss": p[0], "cov_loss": p[1],
+            "loss_rel": max(abs(a - b) / max(abs(b), 1e-30)
+                            for a, b in zip(c, p))}
+    faults = []
+    if not (all(np.isfinite(c)) and p[0] > 0 and p[1] > 0
+            and errs["loss_rel"] <= 1e-3):
+        faults.append("its losses differ from the CPU's")
+    over = near_ties(ref["gaps"])
+    if any(over.values()):
+        faults.append("card picks that are not near-ties (gap above "
+                      f"TIE_REL {TIE_REL:.2e}): " + ", ".join(
+                          f"{k} {len(v)} up to {v[-1]:.3e}"
+                          for k, v in over.items() if v))
+    grad_errs, grad_faults = fp32_faults(
+        {RUNS[0]: card, RUNS[1]: cpu, RUNS[2]: ref}, ("occ", "vis"))
+    errs.update(grad_errs, flips=gap_summary(ref["gaps"]))
+    return errs, faults + grad_faults
+
+
+def hold_scone_runs(step, tag="train"):
+    """The hold's runs of ``step`` (scone_stepper's): the card in float32,
+    the CPU in float64 and float32 forced to the card's picks, and the card
+    again; prints what sets the card's error (the rerun tells rounding
+    that changes from run to run from arithmetic the card repeats; the
+    parameters the largest errors sit in name their layers). Returns
+    (card, cpu, ref)."""
+    card = in_dtype(torch.float32, lambda: step(*RUNS[0]))
+    ref = in_dtype(torch.float64, lambda: step(*RUNS[2], card["picks"],
+                                                card["maxima"]))
+    cpu = in_dtype(torch.float32, lambda: step(*RUNS[1], card["picks"],
+                                                card["maxima"]))
+    again = in_dtype(torch.float32, lambda: step(*RUNS[0]))
+    diag = {"occ_card_rerun": grad_error(again["occ"], card["occ"]),
+            "vis_card_rerun": grad_error(again["vis"], card["vis"]),
+            "occ_worst_params_card": worst_params(card, ref),
+            "occ_worst_params_cpu": worst_params(cpu, ref),
+            "knn_rows": sum(p.shape[0] for p in card["picks"]),
+            "maxima": sum(p.numel() for p in card["maxima"]),
+            "flips_card": gap_summary(ref["gaps"]),
+            "flips_cpu_from_card": gap_summary(cpu["gaps"])}
+    print(f"[{tag}] SCONE step, the card's gradient error: {diag}",
+          flush=True)
+    return card, cpu, ref
+
+
+def worst_params(run, ref):
+    """The three SconeOcc parameters where ``run``'s gradient is furthest
+    from ``ref``'s, relative to the largest reference gradient."""
+    scale = max(float(g.abs().max()) for g in ref["occ"].values())
+    err = {k: float((run["occ"][k] - g).abs().max()) / scale
+           for k, g in ref["occ"].items()}
+    return [(k, f"{err[k]:.2e}") for k in sorted(err, key=err.get)[-3:]]
+
+
+def scone_stepper(state):
+    """``step(dev, dtype, neighbours=None, pools=None, plant=None)``: the
+    SCONE step of ``state`` (scone_state's, or one that load_scone_step
+    read from a file) on ``dev`` in ``dtype``, taking the given kNN
+    neighbours and max-pool points (such lists from another run) instead
+    of its own; ``plant``, if given, is called with SconeOcc and entered
+    as a context around the step before the picks are recorded (a planted
+    fault: scone_holds.planted_pick).
+    Returns its losses, its gradients of SconeOcc and SconeVis, its own kNN
+    and max-pool picks, and the relative gaps of the picks it was forced
+    to take where they differ from its own (``gaps``: "knn", "pool")."""
     params = Params(state["params"])
     nets = create_macarons_model(Params(dict(state["params"],
                                              use_perfect_depth=True)), "cpu")
     nets.occ.load_state_dict(state["occ"])
     nets.vis.load_state_dict(state["vis"])
 
-    def step(dev, dt, neighbours=None, pools=None):
+    def step(dev, dt, neighbours=None, pools=None, plant=None):
         m = MacaronsModel(net_copy(nets.occ, dev, dt),
                           net_copy(nets.vis, dev, dt), None)
         r = MacaronsRuntime(params, m, device=dev)
         r._tables = _to(state["tables"], dev, dt)
         opts = create_optimizers(params, m)
         before = shv.sh_visibility_backward.launches
-        with knn_picks(neighbours) as picks, pool_picks(m.occ, pools) as maxima:
+        with contextlib.ExitStack() as stack:
+            if plant is not None:
+                stack.enter_context(plant(m.occ))
+            kp = stack.enter_context(knn_picks(neighbours))
+            pp = stack.enter_context(pool_picks(m.occ, pools))
             losses = r.scone_train_step(opts["scone"],
                                         *_to(state["args"], dev, dt),
                                         **_to(state["kw"], dev, dt))
@@ -1472,26 +1634,29 @@ def replay_scone_step(state):
                  "sh_visibility backward kernel once")
         return {"losses": [float(v) for v in losses[1:]],
                 "occ": grads_of(m.occ), "vis": grads_of(m.vis),
-                "picks": picks, "maxima": maxima}
+                **picks_of(kp, pp)}
 
+    return step
+
+
+def replay_scone_step(state):
+    """The SCONE step of ``state`` (hold_scone_step's, or one that
+    load_scone_step read from a file) in each of RUNS, each with its own
+    picks, then held as the smoke holds it (``hold_scone_runs``,
+    ``scone_verdict``). Prints what sets the card's gradient error: the
+    kNN query rows and the max-pool maxima whose picks differ from the
+    float64 run's, on the card and on the CPU, the card's error when it
+    takes the float64 run's picks, and the hold's verdict with its faults.
+    Returns the runs with their own picks."""
+    step = scone_stepper(state)
     out = {(dev, dt): in_dtype(dt, lambda: step(dev, dt))
            for dev, dt in RUNS}
     card, cpu, ref = (out[r] for r in RUNS)
-    again = in_dtype(torch.float32, lambda: step(*RUNS[0]))
     moved = in_dtype(torch.float32, lambda: step(*RUNS[0], ref["picks"]))
     pooled = in_dtype(torch.float32, lambda: step(*RUNS[0], None,
                                                   ref["maxima"]))
-    scale = max(float(g.abs().max()) for g in ref["occ"].values())
-
-    def worst(run):
-        err = {k: float((run["occ"][k] - g).abs().max()) / scale
-               for k, g in ref["occ"].items()}
-        return [(k, f"{err[k]:.2e}") for k in sorted(err, key=err.get)[-3:]]
-
-    diag = {"occ_card_rerun": grad_error(again["occ"], card["occ"]),
-            "vis_card_rerun": grad_error(again["vis"], card["vis"]),
-            "occ_worst_params_card": worst(card),
-            "occ_worst_params_cpu": worst(cpu),
+    diag = {"occ_grad_card": grad_error(card["occ"], ref["occ"]),
+            "occ_grad_cpu": grad_error(cpu["occ"], ref["occ"]),
             "knn_rows": sum(p.shape[0] for p in ref["picks"]),
             "knn_rows_differ_card": rows_differ(card["picks"], ref["picks"]),
             "knn_rows_differ_cpu": rows_differ(cpu["picks"], ref["picks"]),
@@ -1503,34 +1668,52 @@ def replay_scone_step(state):
             "maxima_differ_cpu": picks_differ(cpu["maxima"], ref["maxima"]),
             "occ_grad_card_float64_maxima": grad_error(pooled["occ"],
                                                        ref["occ"])}
-    print(f"[train] SCONE step, the card's gradient error: {diag}",
+    print(f"[replay] SCONE step, each run with its own picks: {diag}",
           flush=True)
+    errs, faults = scone_verdict(*hold_scone_runs(step, "replay"))
+    print(f"[replay] the hold's verdict: {'; '.join(faults) or 'passes'}: "
+          f"{errs}", flush=True)
     return out
 
 
 class knn_picks:
-    """SconeOcc's kNN picks while the block runs: a list of each call's
-    neighbour indices (on the CPU), one (queries, k) array per scale; given
-    ``neighbours`` (such a list from another run), each call takes those
-    instead of its own."""
+    """SconeOcc's kNN picks while the block runs: ``picks``, a list of each
+    call's neighbour indices (on the CPU), one (queries, k) array per
+    scale; given ``neighbours`` (such a list from another run), each call
+    takes those instead of its own, and ``gaps`` gets, for each forced
+    neighbour that differs from its own at that rank, the gap between the
+    two squared distances (from this run's values) relative to |q|^2 +
+    |p|^2, the magnitude float32 rounds them at (TIE_REL)."""
 
     def __init__(self, neighbours=None):
         self.neighbours = None if neighbours is None else iter(neighbours)
 
     def __enter__(self):
-        self.own, self.picks = scone_model.knn_points_many, []
+        self.own, self.picks, self.gaps = scone_model.knn_points_many, [], []
 
         def knn(queries, k, big=1e10):
             out = self.own(queries, k, big)
             if self.neighbours is not None:
-                out = [(knn_gather(pc, next(self.neighbours).to(
-                    pc.device).reshape(idx.shape)), d, idx)
-                       for (_, pc, _), (_, d, idx) in zip(queries, out)]
+                forced = []
+                for (x, pc, _), (near, d, idx) in zip(queries, out):
+                    want = next(self.neighbours).to(pc.device).reshape(
+                        idx.shape)
+                    at = knn_gather(pc, want)
+                    q = x[..., None, :]
+                    norm = (q * q).sum(-1)
+                    gap = (((at - q) ** 2).sum(-1)
+                           - ((near - q) ** 2).sum(-1)).abs()
+                    scale = norm + torch.maximum((at * at).sum(-1),
+                                                 (near * near).sum(-1))
+                    differ = want != idx
+                    self.gaps.append((gap[differ] / scale[differ]).cpu())
+                    forced.append((at, d, idx))
+                out = forced
             self.picks += [idx.reshape(-1, k).cpu() for _, _, idx in out]
             return out
 
         scone_model.knn_points_many = knn
-        return self.picks
+        return self
 
     def __exit__(self, *exc):
         scone_model.knn_points_many = self.own
@@ -1538,11 +1721,15 @@ class knn_picks:
 
 class pool_picks:
     """The max-pool picks of the point transformers of ``net`` (SconeOcc)
-    while the block runs: per call, the point each (cloud, feature) maximum
-    comes from, on the CPU; given ``forced`` (such a list from another
-    run), each maximum whose pick differs is moved to the forced point, by
-    raising that point's feature to just above the maximum (a near-tie's
-    gap), so that the gradient takes the forced point."""
+    while the block runs: ``picks``, per call, the point each (cloud,
+    feature) maximum comes from, on the CPU; given ``forced`` (such a list
+    from another run), each maximum whose pick differs is moved to the
+    forced point, by raising that point's feature to just above the
+    maximum (a near-tie's gap), so that the gradient takes the forced
+    point, and ``gaps`` gets the gap between the maximum and the forced
+    point's value (this run's values) relative to the magnitude float32
+    rounds the pooled Dense's outputs at there: sum_i |w_i z_i| + |b| over
+    its inputs z, at either point, the larger (TIE_REL)."""
 
     def __init__(self, net, forced=None):
         self.mods = [m for m in net.modules()
@@ -1550,11 +1737,11 @@ class pool_picks:
         self.forced = None if forced is None else iter(forced)
 
     def __enter__(self):
-        self.picks, self.mask = [], None
+        self.picks, self.gaps, self.mask = [], [], None
         self.hooks = [h for m in self.mods for h in (
             m.register_forward_pre_hook(self.pre, with_kwargs=True),
             m.Dense_0.register_forward_hook(self.post))]
-        return self.picks
+        return self
 
     def pre(self, module, args, kwargs):
         self.mask = kwargs.get("pts_mask")
@@ -1566,11 +1753,21 @@ class pool_picks:
         pick = x.argmax(dim=-2, keepdim=True)
         if self.forced is not None:
             want = next(self.forced).to(x.device).reshape(pick.shape)
-            top = torch.nextafter(x.amax(dim=-2, keepdim=True),
-                                  torch.tensor(np.inf, dtype=x.dtype,
-                                               device=x.device))
-            lift = torch.where(want != pick,
-                               top - torch.gather(x, -2, want), 0.0)
+            peak = x.amax(dim=-2, keepdim=True)
+            at = torch.gather(x, -2, want)
+            differ = want != pick
+            # Each differing maximum's rounding scale: sum_i |w_i z_i| +
+            # |b| of the Dense's output at either point, the larger.
+            b, _, f = differ.nonzero(as_tuple=True)
+            z, w = args[0].detach(), module.weight.detach().abs()[f]
+            scale = torch.maximum(*(
+                (w * z[b, p].abs()).sum(-1) + module.bias.detach().abs()[f]
+                for p in (pick[b, 0, f], want[b, 0, f])))
+            self.gaps.append(((peak - at)[differ] / torch.clamp(
+                scale, min=torch.finfo(x.dtype).tiny)).cpu())
+            top = torch.nextafter(peak, torch.tensor(
+                np.inf, dtype=x.dtype, device=x.device))
+            lift = torch.where(differ, top - at, 0.0)
             out = out + torch.zeros_like(x).scatter(-2, want, lift)
             pick = want
         self.picks.append(pick.cpu())
@@ -1579,6 +1776,16 @@ class pool_picks:
     def __exit__(self, *exc):
         for h in self.hooks:
             h.remove()
+
+
+def picks_of(kp, pp):
+    """A run's kNN and max-pool picks and the gaps of those it was forced
+    to take (knn_picks ``kp``, pool_picks ``pp``)."""
+    def cat(gaps):
+        return torch.cat(gaps) if gaps else torch.zeros(0)
+
+    return {"picks": kp.picks, "maxima": pp.picks,
+            "gaps": {"knn": cat(kp.gaps), "pool": cat(pp.gaps)}}
 
 
 def rows_differ(picks, ref):
@@ -2384,13 +2591,12 @@ def phase_group_times():
 
 def hold_group_scone_step(params, model, rt, members, kw, gen,
                           n_cells_active=5):
-    """One group SCONE step from one state in each of RUNS: ``members`` are
-    a recorded parallel_scone_train_step's scenes; each scene's cell noise
-    and Monte-Carlo sample (points drawn among its occupied ones) are
-    drawn once and given to every run. The card's mean losses within rtol
-    1e-3 of the CPU's, its gradients of SconeOcc and SconeVis as close to
-    the float64 ones as fp32_errors asks (hold_scone_step's rule), and
-    one launch of the B3 backward kernel per scene. Returns the errors."""
+    """One group SCONE step from one state, held as hold_scone_step holds
+    one scene's (the CPU runs taking the card's picks, ``scone_verdict``):
+    ``members`` are a recorded parallel_scone_train_step's scenes; each
+    scene's cell noise and Monte-Carlo sample (points drawn among its
+    occupied ones) are drawn once and given to every run; one launch of
+    the B3 backward kernel per scene. Returns the errors."""
     params = Params(dict(params.to_dict(), occ_curriculum_max_cells=min(
         n_cells_active, rt.occ_curriculum_max_cells)))
     noise, sample = [], []
@@ -2405,7 +2611,7 @@ def hold_group_scone_step(params, model, rt, members, kw, gen,
             device=gen.device, generator=gen)])
     pns = params.get("prediction_neighborhood_size", 3.0)
 
-    def step(dev, dt):
+    def step(dev, dt, neighbours=None, pools=None):
         m = MacaronsModel(net_copy(model.occ, dev, dt),
                           net_copy(model.vis, dev, dt), None)
         r = MacaronsRuntime(params, m, device=dev)
@@ -2414,28 +2620,26 @@ def hold_group_scone_step(params, model, rt, members, kw, gen,
             scene_runtime.device_cell_tables(cfg, table, pns, dev), dev, dt))
         opts = create_optimizers(params, m)
         before = shv.sh_visibility_backward.launches
-        losses = r.parallel_scone_train_step(
-            opts["scone"], [_to(x, dev, dt) for x in members],
-            n_cells_active=n_cells_active,
-            cell_noise=[n.to(dev) for n in noise],
-            sample_idx=[i.to(dev) for i in sample])
+        with knn_picks(neighbours) as kp, pool_picks(m.occ, pools) as pp:
+            losses = r.parallel_scone_train_step(
+                opts["scone"], [_to(x, dev, dt) for x in members],
+                n_cells_active=n_cells_active,
+                cell_noise=[n.to(dev) for n in noise],
+                sample_idx=[i.to(dev) for i in sample])
         if (dev == "cuda" and shv.sh_visibility_backward.launches
                 != before + len(members)):
             fail("the group SCONE step on the card did not launch the B3 "
                  "backward kernel once per scene")
         return {"losses": [float(v) for v in losses[1:]],
-                "occ": grads_of(m.occ), "vis": grads_of(m.vis)}
+                "occ": grads_of(m.occ), "vis": grads_of(m.vis),
+                **picks_of(kp, pp)}
 
-    out = {(dev, dt): in_dtype(dt, lambda: step(dev, dt)) for dev, dt in RUNS}
-    card, cpu = out[RUNS[0]]["losses"], out[RUNS[1]]["losses"]
-    errs = {"occ_loss": cpu[0], "cov_loss": cpu[1],
-            "loss_rel": max(abs(a - b) / max(abs(b), 1e-30)
-                            for a, b in zip(card, cpu))}
-    if not (all(np.isfinite(card)) and cpu[0] > 0 and cpu[1] > 0
-            and errs["loss_rel"] <= 1e-3):
-        fail(f"the group SCONE step on the card and on the CPU differ: "
+    card, cpu, ref = hold_scone_runs(step, "train group")
+    errs, faults = scone_verdict(card, cpu, ref)
+    if faults:
+        fail(f"the group SCONE step on the card: {'; '.join(faults)}: "
              f"{errs}")
-    errs.update(fp32_errors(out, ["occ", "vis"]))
+    print_excused("train group", errs)
     return errs
 
 
@@ -2825,28 +3029,33 @@ CARVE_AGREE = 0.999
 
 
 def shapenet_suite(root):
-    """A ShapeNet-format root of 8 meshes of the synthetic suite, each
-    normalised to a box diagonal of 1: ``02000000/synth_XX/model.obj``,
-    with train (synth_00 .. 05), val (05 .. 07) and test (synth_00, 07)
-    split files. Returns the model paths."""
-    models = []
-    for i in range(8):
-        mesh = build_scene_mesh(1000 + i)
-        if i < 2:
-            mesh = subdivide(mesh, SCENE_LEVELS - i)
-        v = mesh.verts - (mesh.verts.max(0) + mesh.verts.min(0)) / 2
-        v = v / np.linalg.norm(mesh.verts.max(0) - mesh.verts.min(0))
-        name = f"02000000/synth_{i:02d}/model.obj"
-        os.makedirs(os.path.dirname(os.path.join(root, name)))
-        save_obj(os.path.join(root, name),
-                 Mesh(v.astype(np.float32), mesh.faces, mesh.vert_colors))
-        models.append(name)
+    """A ShapeNet-format root of 8 meshes of the synthetic suite
+    (``shapenet_mesh``) with train (synth_00 .. 05), val (05 .. 07) and
+    test (synth_00, 07) split files. Returns the model paths."""
+    models = [shapenet_mesh(root, i) for i in range(8)]
     for split, names in (("train_list.json", models[:6]),
                          ("val_list.json", models[5:]),
                          ("all_test_list.json", [models[0], models[7]])):
         with open(os.path.join(root, split), "w") as f:
             json.dump({"models": names}, f)
     return models
+
+
+def shapenet_mesh(root, i):
+    """Mesh i of the synthetic suite in ShapeNet's layout,
+    ``02000000/synth_<i>/model.obj``, normalised to a box diagonal of 1;
+    meshes 0 and 1 subdivided to 59,392 and 14,848 faces. Returns its path
+    under ``root``."""
+    mesh = build_scene_mesh(1000 + i)
+    if i < 2:
+        mesh = subdivide(mesh, SCENE_LEVELS - i)
+    v = mesh.verts - (mesh.verts.max(0) + mesh.verts.min(0)) / 2
+    v = v / np.linalg.norm(mesh.verts.max(0) - mesh.verts.min(0))
+    name = f"02000000/synth_{i:02d}/model.obj"
+    os.makedirs(os.path.dirname(os.path.join(root, name)))
+    save_obj(os.path.join(root, name),
+             Mesh(v.astype(np.float32), mesh.faces, mesh.vert_colors))
+    return name
 
 
 def pretrain_params(path, root, epochs, **extra):
@@ -2934,16 +3143,23 @@ def hold_gt(root, name):
     return share
 
 
-def gt_raster_row(root, name, cams, label, launches):
+def gt_raster_row(root, name, cams, label, launches, image_size=None):
     """B1 + B2 (the fused rasterize_tiled) at a GT capture's shape: the
-    mesh at surface_resolution scale under ``cams`` at 512x512, held against
-    its plain version, then timed; the pairs K_cap truncation drops are
-    counted, and the whole tiled path (feeder and launch) is timed."""
+    mesh at surface_resolution scale under ``cams`` at ``image_size``
+    squared (the GT config's 512 by default), as ``tiled_row``."""
     cfg = shapenet.ShapeNetGTConfig()
     verts, faces = load_mesh(root, name, "cuda")
     verts = shapenet.adjust_mesh_diagonally(verts, cfg.surface_resolution)
-    size = (cfg.image_size, cfg.image_size)
-    f9 = rast.project_fv_batch(verts, faces, cams)
+    side = image_size or cfg.image_size
+    return tiled_row(rast.project_fv_batch(verts, faces, cams),
+                     (side, side), label, launches)
+
+
+def tiled_row(f9, size, label, launches):
+    """The fused rasterize_tiled row at the shape of the projected faces
+    ``f9`` at image ``size``: held against its plain version, then timed;
+    the pairs K_cap truncation drops are counted, and the whole tiled path
+    (feeder and launch) is timed."""
     K_cap = rast.k_cap(1024, f9.shape[2])
     args = raster_args(f9, size, K_cap, True)[2]
     err, cover = hold_raster("rasterize_tiled", tr.rasterize_tiled,
@@ -3690,6 +3906,211 @@ def phase_depth_pretrain(frames_dirs, scone):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The demos, the tester's exports and the shared-sample agreement tool
+# ---------------------------------------------------------------------------
+
+DEMO_STEPS = 3
+AGREEMENT_TRIALS = 5
+SCONE_DEMO_GT_SIZE = 128
+# The parts whose captures are moves of the default test config.
+DEMO_MOVES = ("macarons demo", "tester exports", "DemoSession")
+# Each part of phase_demos and the kernels it must launch.
+DEMO_KERNELS = {"macarons demo": ("rasterize_tiled", "sh_visibility"),
+                "tester exports": ("rasterize_tiled", "sh_visibility"),
+                "DemoSession": ("sh_visibility",),
+                "scone demo": ("rasterize_tiled", "sh_visibility"),
+                "agreement tool": ("sh_visibility",)}
+
+
+def read_ply_vertices(path):
+    """The vertex count an ASCII PLY declares, held against its lines."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    n = int(lines[2].split()[-1])
+    body = lines[lines.index("end_header") + 1:]
+    if len(body) != n or any(len(row.split()) != 3 for row in body):
+        fail(f"{path}: {len(body)} rows for {n} declared vertices")
+    return n
+
+
+def check_coverages(label, cov):
+    cov = np.asarray(cov, np.float64)
+    if not (np.all(np.isfinite(cov)) and cov.min() >= 0.0 and cov.max() <= 1.0
+            and np.all(np.diff(cov) >= -1e-6)):
+        fail(f"the {label}'s coverages are not in [0, 1] and "
+             f"non-decreasing: {cov.tolist()}")
+
+
+def phase_demos():
+    """The port's last modules, through their entry points, on the card:
+    the macarons demo's run part (demos/macarons_demo.run) with the
+    default test config (smoke_params: ManyDepth and the predicted field,
+    random weights from its torch_seed) for DEMO_STEPS NBV steps on the
+    59,392-face synth_00, its PLY read back (one vertex per valid surface
+    point) and its camera curves (one entry per pose it moved to); the
+    tester's run_test with export_results (2 poses, 1 start), its files
+    read back; a DemoSession (demos/interactive_demo): step, step, reset,
+    then one step under utils/profiling.profile_trace, whose trace must
+    name sh_visibility_kernel; the scone demo's run part on suite mesh 0
+    in ShapeNet's layout (GT at 128x128); the shared-sample agreement tool
+    (data/shared_sample_agreement) with --trials 5 --bench. Each part runs
+    with the launch counts set to 0 just before it and read just after,
+    and fails unless it launched the kernels DEMO_KERNELS names. Then the
+    fused raster's rows at the demos' shapes. Returns the counts and times
+    per part and the rows."""
+    from macarons_tpu_torch.data import shared_sample_agreement
+    from macarons_tpu_torch.demos import interactive_demo, macarons_demo, \
+        scone_demo
+    from macarons_tpu_torch.testers import scene as scene_tester
+    from macarons_tpu_torch.utils.profiling import profile_trace
+
+    dev = resolve_device("cuda")
+    counts, seconds = {}, {}
+
+    @contextlib.contextmanager
+    def part(name):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        counts[name] = read_counts()
+        for kernel in DEMO_KERNELS[name]:
+            if counts[name][kernel] <= 0:
+                fail(f"the {name} never launched the {kernel} kernel: "
+                     f"{counts[name]}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_demos_",
+                                     dir=_work_dir()) as tmp:
+        root = scene_scale_suite(os.path.join(tmp, "scenes"), SCENE_LEVELS)
+        params = smoke_params(root, fixture=False)
+        out = os.path.join(tmp, "demo")
+        with part("macarons demo"):
+            traj, scene = macarons_demo.run(params, root, "synth_00",
+                                            n_steps=DEMO_STEPS, out=out,
+                                            device=dev, verbose=False)
+        check_coverages("macarons demo", traj["coverage"])
+        with open(os.path.join(out, "trajectory.json")) as f:
+            if json.load(f) != json.loads(json.dumps(traj)):
+                fail("the demo's trajectory.json is not its trajectory")
+        valid = int(scene.surface_scene.valid.sum())
+        n_ply = read_ply_vertices(os.path.join(out, "exports",
+                                               "surface.ply"))
+        with open(os.path.join(out, "exports", "cameras.json")) as f:
+            curves = json.load(f)
+        if n_ply != valid or n_ply == 0:
+            fail(f"the demo's PLY holds {n_ply} vertices, the surface "
+                 f"{valid} valid points")
+        if not len(curves["camera_X"]) == len(curves["camera_look"]) \
+                == DEMO_STEPS:
+            fail(f"the demo's camera curves hold {len(curves['camera_X'])} "
+                 f"entries for {DEMO_STEPS} poses")
+
+        results_dir = os.path.join(tmp, "results")
+        with part("tester exports"):
+            results = scene_tester.run_test(
+                Params(dict(params.to_dict(), export_results=True)),
+                data_path=root, results_dir=results_dir, n_start_poses=1,
+                n_poses=2, device=dev, verbose=False)
+        check_coverages("tester", results["synth_00"]["0"]["coverage"])
+        edir = os.path.join(results_dir, "exports", "synth_00")
+        with open(os.path.join(edir, "start_0_cameras.json")) as f:
+            tester_curves = json.load(f)
+        n_tester_ply = read_ply_vertices(os.path.join(
+            edir, "start_0_surface.ply"))
+        if not (tester_curves["camera_X"] and n_tester_ply > 0):
+            fail(f"the tester's exports are empty: {n_tester_ply} vertices")
+
+        item = SceneDataset(root)[0]
+        model = macarons_demo.load_model(params, None, dev,
+                                         make_generator(dev, 0), False)
+        with part("DemoSession"):
+            session = interactive_demo.DemoSession(
+                params, item, os.path.join(tmp, "session"), model, dev)
+            session.step()
+            session.step()
+            stepped = (session.pose, list(session.coverages))
+            session.reset()
+        if stepped[0] != 2 or session.pose != 0 or session.coverages:
+            fail(f"DemoSession's pose counters: {stepped[0]} after two "
+                 f"steps, {session.pose} after reset")
+        check_coverages("DemoSession", stepped[1])
+        trace_dir = os.path.join(tmp, "trace")
+        t0 = time.perf_counter()
+        with profile_trace(trace_dir):
+            session.step()
+            torch.cuda.synchronize()
+        seconds["profiled step"] = time.perf_counter() - t0
+        traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+        named = sum(open(t).read().count("sh_visibility_kernel")
+                    for t in traces)
+        print(f"[demos] a DemoSession step under profile_trace: "
+              f"{len(traces)} trace, sh_visibility_kernel named {named} "
+              f"times", flush=True)
+        if not named:
+            fail("profile_trace's trace of a demo step does not name "
+                 "sh_visibility_kernel")
+
+        suite = os.path.join(tmp, "shapenet")
+        mesh_name = shapenet_mesh(suite, 0)
+        mesh = os.path.join(suite, mesh_name)
+        with part("scone demo"):
+            cov, views, _, _ = scone_demo.run(
+                mesh, out=os.path.join(tmp, "scone_demo"),
+                gt_image_size=SCONE_DEMO_GT_SIZE,
+                device=dev, verbose=False)
+        check_coverages("scone demo", cov)
+
+        with part("agreement tool"):
+            agreement = shared_sample_agreement.main(
+                ["--trials", str(AGREEMENT_TRIALS), "--bench"])
+
+        # The fused raster at the demos' own shapes, timed after the parts:
+        # the moves of the macarons demo, the tester and the DemoSession
+        # (n_interpolation_steps frames of the default test config on the
+        # 59,392-face scene), timed at the macarons demo's first move; the
+        # scone demo's GT at 128x128, one capture per camera kind.
+        moves = sum(counts[p]["rasterize_tiled"] for p in DEMO_MOVES)
+        f9, size, _ = first_move(traj, scene, params)
+        rows = [tiled_row(f9, size, "demos' moves, the macarons demo's "
+                          "first", moves)]
+        if counts["scone demo"]["rasterize_tiled"] != 2:
+            fail("the scone demo's GT did not capture once per camera "
+                 f"kind: {counts['scone demo']}")
+        cfg = shapenet.ShapeNetGTConfig()
+        rows += [gt_raster_row(suite, mesh_name, cams, label, 1,
+                               SCONE_DEMO_GT_SIZE)
+                 for cams, label in (
+                     (shapenet.candidate_cameras(cfg, "cuda")[1],
+                      "scone demo GT, 52 FoV cameras, 128x128"),
+                     (shapenet.ortho_cameras(cfg, "cuda"),
+                      "scone demo GT, 6 orthographic cameras, 128x128"))]
+    print(f"[demos] seconds per part: "
+          f"{ {k: round(v, 2) for k, v in seconds.items()} }; macarons "
+          f"demo coverages {traj['coverage']}, PLY {n_ply} vertices; tester "
+          f"PLY {n_tester_ply} vertices, {len(tester_curves['camera_X'])} "
+          f"camera entries; DemoSession coverages {stepped[1]}; scone demo "
+          f"views {views.tolist()}, coverages {cov.tolist()}; agreement "
+          f"{agreement}; launches {counts}", flush=True)
+    return {"counts": counts, "seconds": seconds, "agreement": agreement,
+            "rows": rows}
+
+
+def demo_rows(gen, demos, worst):
+    """B3's forward at every shape phase_demos launched it (its launches
+    there, by part), and phase_demos' fused raster rows."""
+    at = {}
+    for name, c in demos["counts"].items():
+        for shape, n in c["sh_visibility_at"].items():
+            at.setdefault(shape, {})[name] = n
+    rows = [kernel_row(gen, sum(parts.values()), worst, shape,
+                       "demos: " + ", ".join(parts))
+            for shape, parts in sorted(at.items())]
+    return rows + demos["rows"]
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -3700,6 +4121,7 @@ def main():
     worst = phase_kernels(gen)
     worst_backward = phase_backward_kernel()
     worst_raster = phase_raster_kernels(gen)
+    demos = phase_demos()
     small = phase_trajectory(gen, "trajectory", 0, ["sh_visibility"])
     phase_reference(gen, small["rt"], small["model"], small["call"])
     suite = phase_suite_eval()
@@ -3769,6 +4191,7 @@ def main():
     lane = phase_scone_pretrain()
     rows += lane["rows"]
     rows += pretrain_sh_rows(gen, lane["counts"], worst, worst_backward)
+    rows += demo_rows(gen, demos, worst)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -3789,13 +4212,18 @@ if __name__ == "__main__":
     parser.add_argument("--group-times", action="store_true",
                         help="run only the timing of scene groups 1, 2 and "
                         "4 (phase_group_times)")
+    parser.add_argument("--demos", action="store_true",
+                        help="run only the demos, the tester's exports and "
+                        "the agreement tool (phase_demos)")
     args = parser.parse_args()
-    if args.depth_holds or args.group_times:
+    if args.depth_holds or args.group_times or args.demos:
         if not torch.cuda.is_available():
             fail("CUDA is not available")
         phase_build()
         if args.depth_holds:
             phase_depth_holds(args.depth_holds)
+        elif args.demos:
+            phase_demos()
         else:
             phase_group_times()
     else:

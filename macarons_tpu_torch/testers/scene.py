@@ -42,6 +42,7 @@ from ..trainers.train_macarons import (
 from ..utils.checkpoint import checkpoint_exists
 from ..utils.convert import load_module_weights
 from ..utils.device import make_generator, resolve_device
+from ..utils.export import export_point_cloud_ply, export_trajectory_blender
 
 
 def true_coverage_update(scene: SceneState, covered_scene: G.GridState,
@@ -185,6 +186,27 @@ def compute_trajectory(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
     }
 
 
+def export_trajectory(scene: SceneState, params: Params, export_dir: str,
+                      prefix: str = "", jump_poses: int = 1):
+    """The trajectory's Blender camera curves (``<prefix>cameras.json``:
+    every ``jump_poses``-th frame's pose from the n_interpolation_steps-th
+    frame on) and its reconstructed surface (``<prefix>surface.ply``, the
+    surface grid's valid points) under ``export_dir``. Returns the two
+    paths."""
+    cam = scene.camera
+    pts, valid = G.all_points(scene.surface_scene)
+    return (export_trajectory_blender(
+                os.path.join(export_dir, f"{prefix}cameras.json"),
+                np.concatenate(cam.X_cam_history, 0),
+                np.concatenate(cam.V_cam_history, 0),
+                cam.n_interpolation_steps,
+                params.get("scene_scale_factor", 1.0),
+                jump_poses=jump_poses),
+            export_point_cloud_ply(
+                os.path.join(export_dir, f"{prefix}surface.ply"), pts,
+                valid=valid))
+
+
 def run_test(params: Params, data_path: Optional[str] = None,
              results_dir: str = "results/scene_exploration",
              results_name: str = "test_results.json",
@@ -199,12 +221,9 @@ def run_test(params: Params, data_path: Optional[str] = None,
     the CPU). Weights come from ``weights_path`` (a MACARONS checkpoint: the
     port's ``.pt`` or a JAX ``.msgpack``) if it exists, else from a random
     init seeded by ``torch_seed``; ``vis_weights_path`` (a SconeVis
-    variables msgpack) then replaces SconeVis's."""
-    if params.get("export_results", False):
-        raise NotImplementedError(
-            "export_results: the tester's exports (a PLY of the surface and "
-            "the Blender camera curves, utils/export.py) are not ported yet "
-            "(ROADMAP.md §A.4); set export_results to false")
+    variables msgpack) then replaces SconeVis's. With ``export_results``,
+    each trajectory's camera curves and surface go under
+    ``results_dir/exports/<scene>/start_<i>_{cameras.json,surface.ply}``."""
     dev = resolve_device(device)
     data_path = data_path or params.get("dataset_path") or params.data_path
     rs = np.random.default_rng(params.get("random_seed", 42))
@@ -269,6 +288,9 @@ def run_test(params: Params, data_path: Optional[str] = None,
             os.makedirs(results_dir, exist_ok=True)
             with open(out_path, "w") as f:
                 json.dump({**prior, **results}, f)
+            if params.get("export_results", False):
+                export_trajectory(scene, params, os.path.join(
+                    results_dir, "exports", name), f"start_{start_i}_")
             if verbose:
                 print(f"{name} start {start_i}: final coverage "
                       f"{traj['coverage'][-1]:.4f}")

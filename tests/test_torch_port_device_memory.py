@@ -26,6 +26,7 @@
   on a scripted ``mem_get_info``, and ``run_training`` stopping on it).
 """
 
+import json
 import os
 import types
 
@@ -776,14 +777,23 @@ def test_run_training_memory(root, tmp_path, device_memory, jax_weights):
 
 
 def test_tester_export_results_raises(root, tmp_path):
-    """The tester's exports (utils/export.py) are not ported: run_test
-    with export_results raises before it evaluates anything, where the JAX
-    tester would write a PLY and Blender cameras."""
+    """run_test with export_results raises no NotImplementedError: after
+    the trajectory it writes the Blender camera curves (every frame's pose
+    from the n_interpolation_steps-th on, as the JAX tester) and the
+    surface PLY under results_dir/exports/<scene>/. (The name dates from
+    when the branch raised; it is kept so that the test's record follows
+    it.)"""
     from macarons_tpu_torch.testers import scene as tester
 
     params = Params(dict(DEVICE_TRAIN, data_path=root, export_results=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tester.run_test(params, results_dir=str(tmp_path / "results"),
-                        n_start_poses=1, n_poses=1, device="cpu",
-                        verbose=False)
-    assert not os.path.exists(tmp_path / "results")
+    results = tester.run_test(params, results_dir=str(tmp_path / "results"),
+                              n_start_poses=1, n_poses=1, device="cpu",
+                              verbose=False)
+    name = next(iter(results))
+    edir = tmp_path / "results" / "exports" / name
+    with open(edir / "start_0_cameras.json") as f:
+        curves = json.load(f)
+    assert len(curves["camera_X"]) == len(curves["camera_look"]) == 1
+    lines = (edir / "start_0_surface.ply").read_text().splitlines()
+    n = int(lines[2].split()[-1])
+    assert n > 0 and len(lines) == lines.index("end_header") + 1 + n
