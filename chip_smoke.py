@@ -3,6 +3,10 @@
 Usage: python3 chip_smoke.py
        python3 chip_smoke.py --depth-holds N   (only the depth hold, N times)
        python3 chip_smoke.py --demos           (only phase_demos)
+       python3 chip_smoke.py --data-parallel   (only phase_data_parallel)
+       python3 chip_smoke.py --replay-depth-pretrain-hold FILE
+                                               (a failed learn_pose hold,
+                                                replay_depth_hold)
        python3 chip_smoke.py --group-times     (only scene groups 1, 2, 4
                                                 with the disk memory and 1,
                                                 2 with the device memory
@@ -111,6 +115,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      step held card against CPU; B1 + B2 at the GT captures' shapes, B3
      and its backward at (3, 52, 2048) and B3 at the ShapeNet tester's
      (1, 52, 2048), held against their plain versions and timed;
+ 11b. data_parallel: the pretrainers and a scene group over
+     ranks (parallel/distributed.spawn: two gloo ranks sharing the one
+     card, or NCCL with a rank per card over up to 4), at the configs'
+     widths: the occupancy and coverage-gain pretrainers 2 steps at world
+     x 3 items against one process at the same global batch; run_training
+     at a scene group of one 59,392-face scene a rank (3 poses, a remap, a
+     resumed epoch with one depth and one SCONE replay loop, the disk
+     memory), the replicas compared bit for bit after every optimizer
+     step; the last group SCONE step held against one process's on the
+     same saved inputs; each rank's launches printed with the backend and
+     the world, and added to the kernel table;
  12. print the kernel table (JSON), the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
 Each trajectory prints its pose sequence and coverages. A saved SCONE step
@@ -173,6 +188,7 @@ from macarons_tpu_torch.ops.geometry import FoVCamera, look_at_view_transform
 from macarons_tpu_torch.ops.knn import knn_gather
 from macarons_tpu_torch.ops.projection import disparity_to_depth
 from macarons_tpu_torch.ops.sampling import compute_mesh_face_area, cumsum_rows
+from macarons_tpu_torch.parallel import distributed, mesh
 from macarons_tpu_torch.scene.camera import (
     PoseSpace,
     episode_commit,
@@ -205,7 +221,8 @@ from macarons_tpu_torch.trainers.train_macarons import (
     setup_scene,
 )
 from macarons_tpu_torch.utils import generate_macarons_model, native_loader
-from macarons_tpu_torch.utils.checkpoint import load_checkpoint
+from macarons_tpu_torch.utils.checkpoint import load_checkpoint, \
+    save_checkpoint
 from macarons_tpu_torch.utils.device import make_generator, resolve_device
 
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -374,18 +391,46 @@ def sh_inputs(gen, B, C, L, P=4):
     return pts, harm, X_cam
 
 
+# The wrappers that also count their launches by shape: B3's two by
+# (B, C, L), the fused raster by (cameras, faces).
+KERNELS_AT = ("rasterize_tiled", "sh_visibility", "sh_visibility_backward")
+
+
 def reset_counts():
     for fn in KERNELS.values():
         fn.launches = 0
-    shv.sh_visibility.launches_at.clear()
+    for name in KERNELS_AT:
+        KERNELS[name].launches_at.clear()
 
 
 def read_counts():
-    """Each kernel's launches, and B3's forward's by (B, C, L) under
-    "sh_visibility_at"."""
+    """Each kernel's launches, and those of KERNELS_AT by shape under
+    "<name>_at"."""
     counts = {name: fn.launches for name, fn in KERNELS.items()}
-    counts["sh_visibility_at"] = dict(shv.sh_visibility.launches_at)
+    for name in KERNELS_AT:
+        counts[f"{name}_at"] = dict(KERNELS[name].launches_at)
     return counts
+
+
+@contextlib.contextmanager
+def recorded_moves(n_cams):
+    """Inside: the projected faces and the image size of the newest fused
+    raster launch over ``n_cams`` cameras (a move's captures), in the
+    returned list."""
+    moves = []
+    launch = rast.rasterize_tiled
+
+    def record(f9, *args, **kw):
+        if f9.shape[0] == n_cams:
+            H, W = args[8:10]
+            moves[:] = [(f9, (H, W))]
+        return launch(f9, *args, **kw)
+
+    rast.rasterize_tiled = record
+    try:
+        yield moves
+    finally:
+        rast.rasterize_tiled = launch
 
 
 def phase_build():
@@ -1303,7 +1348,8 @@ def nudge_frames(frames, seed):
     return flat.reshape(frames.shape).to(frames.device)
 
 
-def hold_depth_step(params, model, batch, alpha, seed=0, draws=None):
+def hold_depth_step(params, model, batch, alpha, seed=0, draws=None,
+                    save_to=None):
     """One depth optimizer step from one state (the networks of ``model``,
     fresh AdamW, augmentation with fixed draws) in each of DEPTH_RUNS and
     in DEPTH_REPLICAS CPU float32 replicas on frames nudged by one ulp
@@ -1314,7 +1360,8 @@ def hold_depth_step(params, model, batch, alpha, seed=0, draws=None):
     statistics' errors within 1e-4 and 1e-5 or that multiple of the
     replicas' noise; TF32 off in every card run. ``draws`` are the
     augmentation's (default: jitter and flip at fixed factors). Returns
-    the errors."""
+    the errors. A failing hold with ``save_to`` writes its state there
+    first (``save_depth_hold``; ``replay_depth_hold`` runs it again)."""
     draws = draws or {"jitter": True, "symmetry": True,
                       "factors": (1.1, 0.9, 1.05, 0.03)}
 
@@ -1366,12 +1413,22 @@ def hold_depth_step(params, model, batch, alpha, seed=0, draws=None):
                 depth_grad_replicas=noise["grad"],
                 loss_noise=noise["loss"], stats_noise=noise["stats"])
     errs["card_over_noise"] = errs["depth_grad_card"] / max(noise["grad"])
+
+    def held_fail(msg):
+        if save_to is not None:
+            save_depth_hold(save_to, params, model, batch, alpha, seed,
+                            draws, errs)
+            rel_path = os.path.relpath(save_to, REPO_DIR)
+            msg += (f" (the held state is in {rel_path}: python3 "
+                    f"chip_smoke.py --replay-depth-pretrain-hold {rel_path})")
+        fail(msg)
+
     if not np.isfinite(card["loss"]):
-        fail(f"the depth step's loss on the card is not finite: {errs}")
+        held_fail(f"the depth step's loss on the card is not finite: {errs}")
     if not max(errs["loss_rel_card64"], errs["stats_rel_card64"],
                errs["depth_grad_card64"]) <= DEPTH_F64_REL:
-        fail(f"the depth step in float64 on the card is further than "
-             f"{DEPTH_F64_REL} from the CPU's: {errs}")
+        held_fail(f"the depth step in float64 on the card is further than "
+                  f"{DEPTH_F64_REL} from the CPU's: {errs}")
     # The float32 loss and statistics: within the earlier fixed bounds
     # (1e-4, 1e-5) or, where the step's own float32 noise is larger,
     # within DEPTH_NOISE_MULTIPLE of it, as the gradient.
@@ -1379,13 +1436,49 @@ def hold_depth_step(params, model, batch, alpha, seed=0, draws=None):
             <= max(1e-4, DEPTH_NOISE_MULTIPLE * noise["loss"])
             and stats_rel(card, ref)
             <= max(1e-5, DEPTH_NOISE_MULTIPLE * noise["stats"])):
-        fail(f"the depth step's float32 loss or BatchNorm statistics on the "
-             f"card are further from float64 than the step's float32 noise "
-             f"allows: {errs}")
+        held_fail(f"the depth step's float32 loss or BatchNorm statistics "
+                  f"on the card are further from float64 than the step's "
+                  f"float32 noise allows: {errs}")
     if not errs["card_over_noise"] <= DEPTH_NOISE_MULTIPLE:
-        fail(f"the depth gradient on the card is further from the float64 "
-             f"one than {DEPTH_NOISE_MULTIPLE} times the step's float32 "
-             f"noise: {errs}")
+        held_fail(f"the depth gradient on the card is further from the "
+                  f"float64 one than {DEPTH_NOISE_MULTIPLE} times the step's "
+                  f"float32 noise: {errs}")
+    return errs
+
+
+DEPTH_HOLD_FILE = os.path.join(HELD_DIR, "depth_pretrain_hold.pt.gz")
+
+
+def save_depth_hold(path, params, model, batch, alpha, seed, draws, errs):
+    """Everything a depth hold starts from, on the CPU, gzipped: the
+    config, the three networks, the batch and its alphas, the nudges'
+    seed, the augmentation's draws, and the errors the hold measured."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    state = {"params": params.to_dict(),
+             "model": MacaronsModel(*(copy.deepcopy(n).cpu() for n in
+                                      (model.occ, model.vis, model.depth))),
+             "batch": _to(batch, "cpu"), "alpha": _to(alpha, "cpu"),
+             "seed": seed, "draws": draws, "errs": errs}
+    with gzip.open(path, "wb", compresslevel=6) as f:
+        torch.save(state, f)
+    print(f"[depth hold] the held state saved to "
+          f"{os.path.relpath(path, REPO_DIR)} "
+          f"({os.path.getsize(path) / 2**20:.1f} MiB)", flush=True)
+
+
+def replay_depth_hold(path):
+    """A depth hold saved by a failing smoke (``save_depth_hold``), run
+    again on the card and the CPU from the same state: prints the
+    recorded errors beside the replay's, then holds it as the smoke did
+    (hold_depth_step's rule, unchanged), failing as it would."""
+    with gzip.open(path, "rb") as f:
+        state = torch.load(f, weights_only=False)
+    print(f"[depth hold] recorded: {state['errs']}", flush=True)
+    m = state["model"]
+    model = MacaronsModel(*(n.to("cuda") for n in (m.occ, m.vis, m.depth)))
+    errs = hold_depth_step(Params(state["params"]), model, state["batch"],
+                           state["alpha"], state["seed"], state["draws"])
+    print(f"[depth hold] replayed, within the rule: {errs}", flush=True)
     return errs
 
 
@@ -1897,7 +1990,8 @@ def phase_train(frames_to):
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
-        with StepRecorder() as rec:
+        with StepRecorder() as rec, \
+                recorded_moves(p0.n_interpolation_steps) as moves:
             _, losses0 = run_training(p0, weights_dir=wdir, memory_root=mroot,
                                       device=dev, verbose=False,
                                       on_phase=rec.on_phase)
@@ -2059,7 +2153,7 @@ def phase_train(frames_to):
           f"{s_peak:.2f} GiB", flush=True)
     return dict(counts=counts, n_cams=int(sargs[5].R.shape[0]),
                 seq_len=p1.seq_len, frames_dirs=frames_dirs, model=model,
-                store_bytes=stores["bytes"])
+                store_bytes=stores["bytes"], move=moves[0])
 
 
 # The device decision scores every neighbour move of the lattice: one
@@ -2388,7 +2482,8 @@ def phase_train_group():
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
-        with StepRecorder() as rec:
+        with StepRecorder() as rec, \
+                recorded_moves(p0.n_interpolation_steps) as moves:
             run_training(p0, weights_dir=wdir, memory_root=mroot, device=dev,
                          verbose=False, on_phase=rec.on_phase)
             t1 = time.perf_counter()
@@ -2467,7 +2562,7 @@ def phase_train_group():
     errs = hold_group_scone_step(p1, model, *rec.group_call, gen)
     print(f"[train group] group SCONE step (n_cells_active 5), card against "
           f"CPU: {errs} ({time.perf_counter() - t0:.1f} s)", flush=True)
-    return counts
+    return counts, moves[0]
 
 
 class PhaseTimes(StepRecorder):
@@ -2920,6 +3015,19 @@ def two_pass(b1, b2, lane_faces):
     return tr.merge_passes(tr.rasterize_pairs(*b1), (z, fid, b0, b1_))
 
 
+def moved_row(counts, move, tag):
+    """tiled_row at a phase's recorded move (``move``: the projected faces
+    and the image size), with the phase's launches at the move's (cameras,
+    faces); fails if there are none."""
+    f9, size = move
+    n = counts["rasterize_tiled_at"].get((f9.shape[0], f9.shape[2]), 0)
+    if n <= 0:
+        fail(f"{tag}: no rasterize_tiled launch at its move's shape: "
+             f"{counts['rasterize_tiled_at']}")
+    return tiled_row(f9, size, f"{tag}, {f9.shape[0]} cameras x "
+                     f"{f9.shape[2]} faces", n)
+
+
 def raster_rows(launches, worst, f9, size):
     """B1 alone, B2 alone and the fused launch at the scene-scale move's
     shape (its cameras' tiles stacked on the grid): held against their
@@ -3243,7 +3351,7 @@ def hold_pretrain_step(kind, params, net, occ_net, batch, draws=None):
     return errs
 
 
-def phase_scone_pretrain():
+def phase_scone_pretrain(work):
     """The SCONE pretraining lane at the configs' widths: a ShapeNet-format
     root of 8 synthetic meshes and its GT (ShapeNetGTConfig: 52 FoV and 6
     orthographic cameras at 512x512, 16,384 surface points, 600,000
@@ -3256,7 +3364,9 @@ def phase_scone_pretrain():
     counts set to 0 before and read after all of it. Then the GT hold on
     synth_00, one occ and one vis step held card against CPU, and the
     MACARONS checkpoint assembled from the two and loaded by the online
-    trainer's set-up. Returns the rows' inputs."""
+    trainer's set-up. Its files go under the directory ``work``, which the
+    caller removes. Returns the rows' inputs and the ShapeNet root
+    ("root")."""
     dev = resolve_device("cuda")
     gc.collect()
     torch.cuda.empty_cache()
@@ -3267,8 +3377,7 @@ def phase_scone_pretrain():
         ev.record()
         timer[name] = ev
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_shapenet_",
-                                     dir=_work_dir()) as tmp:
+    with contextlib.nullcontext(work) as tmp:
         root = os.path.join(tmp, "ShapeNetCore.v1")
         models = shapenet_suite(root)
         w_occ, w_vis = (os.path.join(tmp, "weights", k)
@@ -3452,7 +3561,7 @@ def phase_scone_pretrain():
                               "GT, 52 FoV cameras, 512x512", n_big),
                 gt_raster_row(root, models[0], ortho,
                               "GT, 6 orthographic cameras, 512x512", n_big)]
-    return dict(counts=counts, rows=rows, gt_share=share)
+    return dict(counts=counts, rows=rows, gt_share=share, root=root)
 
 
 class counting:
@@ -3868,7 +3977,8 @@ def phase_depth_pretrain(frames_dirs, scone):
     t0 = time.perf_counter()
     herr = hold_depth_step(plp, MacaronsModel(scone.occ, scone.vis, lp_model),
                            {k: v[:1] for k, v in batch.items()},
-                           {k: v[:1] for k, v in alpha.items()})
+                           {k: v[:1] for k, v in alpha.items()},
+                           save_to=DEPTH_HOLD_FILE)
     print(f"[depth_pretrain] learn_pose step B 1, card against CPU: {herr} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -4111,6 +4221,382 @@ def demo_rows(gen, demos, worst):
     return rows + demos["rows"]
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism over ranks: the pretrainers and a scene group
+# ---------------------------------------------------------------------------
+
+# Each rank's pretraining batch (the configs' batch_size) and steps; the
+# scene group's poses per epoch, its remap, and the whole phase's limit
+# (the ranks' collectives time out after it too).
+DP_BATCH = 3
+DP_STEPS = 2
+DP_POSES = 3
+DP_REMAP = 1
+DP_TIMEOUT = 420.0
+# The phases of a rank's scene (one a rank) that follow an optimizer step:
+# the depth step, the group SCONE step, depth replay and SCONE replay.
+DP_AGREE_AT = ("scone_step", "depth_replay", "scone_replay", "remap")
+DP_KERNELS = ["rasterize_tiled", "sh_visibility", "sh_visibility_backward"]
+
+
+def dp_layout():
+    """(backend, world): NCCL with one rank per card over min(cards, 4)
+    cards where there are several; gloo with two ranks sharing the one
+    card otherwise."""
+    n = torch.cuda.device_count()
+    return ("nccl", min(n, 4)) if n >= 2 else ("gloo", 2)
+
+
+def dp_shapenet_root(root, tmp, world):
+    """A root over ``root``'s meshes and GT whose split lists repeat its
+    own so that each holds DP_STEPS global batches of world x DP_BATCH
+    items."""
+    out = os.path.join(tmp, "dp_shapenet")
+    os.makedirs(out)
+    os.symlink(os.path.join(root, "02000000"), os.path.join(out, "02000000"))
+    n = DP_STEPS * DP_BATCH * world
+    for split in ("train_list.json", "val_list.json", "all_test_list.json"):
+        with open(os.path.join(root, split)) as f:
+            models = json.load(f)["models"]
+        with open(os.path.join(out, split), "w") as f:
+            json.dump({"models": [models[i % len(models)]
+                                  for i in range(n)]}, f)
+    return out
+
+
+def dp_pretrain(kind, cfg, batch, weights_dir):
+    """One epoch of DP_STEPS steps (and as many validation batches) of a
+    SCONE pretrainer at the config's widths with ``batch`` items a rank.
+    Returns (network, {"train": losses, "val": losses[, "nbv": ...]})."""
+    path = ("configs/scone/occupancy/occupancy_pretraining_config.json"
+            if kind == "occ" else
+            "configs/scone/coverage_gain/coverage_gain_pretraining_config.json")
+    p = pretrain_params(path, cfg["shapenet_root"], 1)
+    p.update(dict(batch_size=batch, start_from_scratch=True))
+    kw = dict(weights_dir=weights_dir, max_batches_per_epoch=DP_STEPS,
+              device="cuda", verbose=False)
+    if kind == "occ":
+        net, tl, vl = pretrain_occ.run_training(p, **kw)
+        return net, {"train": tl, "val": vl}
+    net, tl, vl, nbv = pretrain_vis.run_training(
+        p, occ_weights_path=cfg["occ_ckpt"], **kw)
+    return net, {"train": tl, "val": vl, "nbv": nbv}
+
+
+def dp_group_params(cfg, epochs):
+    p = train_params(cfg["scenes"], epochs)
+    p.update(dict(n_parallel_scenes=cfg["world"], device_memory=False,
+                  n_poses_in_trajectory=DP_POSES, remap_every_n_poses=DP_REMAP,
+                  n_memory_loops=1, n_memory_scene_loops=1))
+    return p
+
+
+def dp_group_draws(members, first):
+    """The injected draws of a held group SCONE step, scene by scene from
+    a generator of the scene's place ``first + s`` in the group (as
+    hold_group_scone_step draws them), so one process and the ranks give
+    each scene the same."""
+    noise, sample = [], []
+    for s, x in enumerate(members):
+        gen = make_generator(torch.device("cuda"), SEED + 40 + first + s)
+        _, _, occ, valid = x.field
+        pool = torch.nonzero((occ[:, 0] > 0.1) & valid)[:, 0]
+        noise.append(torch.rand(x.cfg.n_cells, device="cuda", generator=gen))
+        sample.append(pool[torch.randint(
+            len(pool), (x.visited_cams.R.shape[0], 2048), device="cuda",
+            generator=gen)])
+    return noise, sample
+
+
+def dp_group_step(params, nets, members, first):
+    """One group SCONE step (``parallel_scone_train_step``) from ``nets``
+    (SconeOcc's and SconeVis's state dicts) over ``members``, this
+    process's scenes of the group from place ``first``, with
+    dp_group_draws' draws; n_cells_active 5. Returns (losses, gradients
+    on the CPU)."""
+    model = create_macarons_model(params, "cuda")
+    model.occ.load_state_dict(nets["occ"])
+    model.vis.load_state_dict(nets["vis"])
+    rt = MacaronsRuntime(params, model, device="cuda")
+    opts = create_optimizers(params, model)
+    noise, sample = dp_group_draws(members, first)
+    losses = rt.parallel_scone_train_step(
+        opts["scone"], members, n_cells_active=5, cell_noise=noise,
+        sample_idx=sample)
+    return ([float(v) for v in losses],
+            {"occ": grads_of(model.occ), "vis": grads_of(model.vis)})
+
+
+def dp_rank(cfg):
+    """One rank of phase_data_parallel: the two pretrainers at DP_BATCH
+    items a rank, then run_training at a scene group of one scene a rank
+    (an epoch of DP_POSES poses with a remap, a resumed one with one depth
+    and one SCONE replay loop), replicas_agree after every optimizer step
+    (DP_AGREE_AT, the optimizers' states included), then one group SCONE
+    step from the trained weights with injected draws, its inputs saved
+    for the one-process hold. Launch counts from the rank's start to the
+    end of the training. Returns the results on the CPU."""
+    rank, world = mesh.rank(), mesh.world()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = {"rank": rank, "device": str(torch.cuda.current_device())}
+    for kind in ("occ", "vis"):
+        net, losses = dp_pretrain(kind, cfg, DP_BATCH,
+                                  os.path.join(cfg["work"], f"dp_{kind}"))
+        out[kind] = {"losses": losses, "agree": mesh.replicas_agree(net),
+                     "state": {k: v.cpu() for k, v in
+                               net.state_dict().items()}}
+    t1 = time.perf_counter()
+
+    made = {}
+    create_model, create_opts = TM.create_macarons_model, TM.create_optimizers
+    step_fn = MacaronsRuntime.parallel_scone_train_step
+    recorded = []
+
+    def model_hook(params, dev):
+        made["model"] = create_model(params, dev)
+        return made["model"]
+
+    def opts_hook(params, model):
+        made["opts"] = create_opts(params, model)
+        return made["opts"]
+
+    def group_hook(rt, opt, members, **kw):
+        recorded[:] = [(members, kw)]
+        return step_fn(rt, opt, members, **kw)
+
+    checks = []
+
+    def on_phase(epoch, pose_i, name):
+        if name in DP_AGREE_AT:
+            m = made["model"]
+            ok = mesh.replicas_agree(m.depth, m.occ, m.vis, optimizers=[
+                o for o in made["opts"].values() if o is not None])
+            checks.append(ok)
+            if not ok:
+                raise RuntimeError(f"rank {rank}: the replicas differ after "
+                                   f"epoch {epoch} pose {pose_i}'s {name} "
+                                   f"step")
+
+    params = dp_group_params(cfg, 2)
+    TM.create_macarons_model, TM.create_optimizers = model_hook, opts_hook
+    MacaronsRuntime.parallel_scone_train_step = group_hook
+    try:
+        wdir = os.path.join(cfg["work"], "dp_weights")
+        mroot = os.path.join(cfg["work"], "dp_memory")
+        with recorded_moves(params.n_interpolation_steps) as moves:
+            run_training(dp_group_params(cfg, 1), weights_dir=wdir,
+                         memory_root=mroot, device="cuda", verbose=False,
+                         on_phase=on_phase)
+            model, losses = run_training(params, weights_dir=wdir,
+                                         memory_root=mroot, device="cuda",
+                                         verbose=False, on_phase=on_phase)
+    finally:
+        TM.create_macarons_model, TM.create_optimizers = create_model, \
+            create_opts
+        MacaronsRuntime.parallel_scone_train_step = step_fn
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = read_counts()
+    out.update(counts=counts, group_losses=losses, checks=checks,
+               seconds={"pretrain": t1 - t0, "group": t2 - t1},
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    # This rank's rows of the kernels line: each kernel held and timed at
+    # the shape this rank's group run gave it, the ranks one after another
+    # (two may share a card), with the rank's launches at that shape.
+    step = (params.n_interpolation_steps, 1, params.seq_len)
+    tag = f"data parallel, rank {rank} of {world}"
+    for turn in range(world):
+        if turn == rank:
+            gen = make_generator(torch.device("cuda"), SEED + 60 + rank)
+            backward = backward_times(gen, *step)
+            if not backward["max_abs_err"] <= BACKWARD_REL:
+                fail(f"rank {rank}: sh_visibility_backward {step} differs "
+                     f"from its plain version by "
+                     f"{backward['max_abs_err']} of max |grad|")
+            out["rows"] = [
+                moved_row(counts, moves[0], tag),
+                kernel_row(gen, launches_at(counts, step), 0.0, step,
+                           f"SCONE step, {tag}"),
+                dict(backward, name=f"sh_visibility_backward (SCONE step, "
+                     f"{tag}, {'x'.join(map(str, step))})", route="cuda",
+                     source="macarons_tpu_torch/csrc/sh_visibility.cu",
+                     replaces="macarons_tpu/ops/pallas/sh_visibility.py:133",
+                     launches=counts["sh_visibility_backward_at"].get(
+                         step, 0), library_ms=None)]
+        distributed.barrier()
+
+    # The last group SCONE step's inputs (this rank's scenes), held in one
+    # process against the group's step here.
+    members = [_to(x, "cpu") for x in recorded[0][0]]
+    nets = {k: {n: v.cpu() for n, v in getattr(model, k).state_dict().items()}
+            for k in ("occ", "vis")}
+    first = rank * len(members)
+    out["held"] = dp_group_step(params, nets, [_to(x, "cuda")
+                                               for x in members], first)
+    if rank == 0:
+        out["held_nets"] = nets
+    torch.save(members, os.path.join(cfg["work"], f"dp_members_{rank}.pt"))
+    return out
+
+
+def phase_data_parallel(shapenet_root):
+    """Data parallelism through the entry points on the card(s)
+    (dp_layout: two gloo ranks on one card, or NCCL over up to 4 cards):
+    the occupancy and coverage-gain pretrainers at the configs' widths, 2
+    steps at world x DP_BATCH items, held against one process at the
+    same global batch (each epoch's train and validation losses at rtol
+    1e-4, every parameter within STEP_REL of its network's largest); a
+    scene group of one scene a rank (synth_00, synth_01, ... subdivided to
+    59,392 faces) over DP_POSES poses an epoch, a remap, a resumed epoch
+    with one depth and one SCONE replay loop, the disk memory; the ranks'
+    replicas agreeing after every step; one group SCONE step from the
+    trained weights held against the same step in one process on the
+    same saved inputs (the gradient within STEP_REL of max |g|). Fails
+    unless every rank launched rasterize_tiled and both B3 kernels.
+    Returns (backend, world, each rank's launch counts)."""
+    backend, world = dp_layout()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_",
+                                     dir=_work_dir()) as tmp:
+        # The coverage-gain pretrainer's frozen SconeOcc: drawn from a
+        # seed, its last bias raised by 1, so that items sample proxies
+        # (a briefly trained one predicts no occupancy above 0.1).
+        p_vis = pretrain_params("configs/scone/coverage_gain/"
+                                "coverage_gain_pretraining_config.json",
+                                shapenet_root, 1)
+        occ = init_weights(pretrain_occ.build_model(p_vis).to("cuda"),
+                           make_generator(torch.device("cuda"), SEED))
+        with torch.no_grad():
+            occ.Dense_2.bias += 1.0
+        occ_ckpt = os.path.join(tmp, "dp_occ_init")
+        save_checkpoint(occ_ckpt, occ)
+        del occ
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dict(shapenet_root=dp_shapenet_root(shapenet_root, tmp, world),
+                   occ_ckpt=occ_ckpt,
+                   scenes=group_suite(os.path.join(tmp, "scenes"),
+                                      SCENE_LEVELS, world),
+                   work=tmp, world=world)
+        print(f"[data parallel] this process holds "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+              f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved) as "
+              f"the ranks start", flush=True)
+        # Ranks sharing a card grow their allocators' segments in place:
+        # a cache fragmented into reserved but unallocated blocks can take
+        # the room the other rank needs.
+        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t0 = time.perf_counter()
+        try:
+            ranks = distributed.spawn(
+                dp_rank, world, (cfg,), backend=backend, device="cuda",
+                timeout=DP_TIMEOUT, deadline=DP_TIMEOUT,
+                threads=max(1, (os.cpu_count() or 2) // world))
+        finally:
+            if alloc is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        t_ranks = time.perf_counter() - t0
+        by_shape = [{k: r["counts"][k + "_at"] for k in DP_KERNELS}
+                    for r in ranks]
+        print(f"[data parallel] backend {backend}, world {world}, ranks on "
+              f"cards {[r['device'] for r in ranks]}: launches per rank "
+              f"{[{k: r['counts'][k] for k in DP_KERNELS} for r in ranks]}; "
+              f"by shape {by_shape}", flush=True)
+        for r in ranks:
+            if any(r["counts"][k] <= 0 for k in DP_KERNELS):
+                fail(f"rank {r['rank']} did not launch every kernel of the "
+                     f"path: {r['counts']}")
+            if not (r["occ"]["agree"] and r["vis"]["agree"] and r["checks"]
+                    and all(r["checks"])):
+                fail(f"rank {r['rank']}'s replicas did not agree: "
+                     f"{r['checks']}")
+        # Every rank holds the same networks and losses.
+        for r in ranks[1:]:
+            for kind in ("occ", "vis"):
+                if r[kind]["losses"] != ranks[0][kind]["losses"] or not all(
+                        torch.equal(v, ranks[0][kind]["state"][k])
+                        for k, v in r[kind]["state"].items()):
+                    fail(f"{kind} pretraining differs between ranks 0 and "
+                         f"{r['rank']}")
+            if r["group_losses"] != ranks[0]["group_losses"]:
+                fail("the group's losses differ between ranks")
+
+        # One process at the same global batch.
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        one = {}
+        for kind in ("occ", "vis"):
+            net, losses = dp_pretrain(kind, cfg, DP_BATCH * world,
+                                      os.path.join(tmp, f"one_{kind}"))
+            one[kind] = (losses, {k: v.cpu() for k, v in
+                                  net.state_dict().items()})
+            del net
+        t_one = time.perf_counter() - t1
+        one_peak = torch.cuda.max_memory_allocated() / 2**30
+        errs = {}
+        for kind in ("occ", "vis"):
+            ours, (ref, ref_state) = ranks[0][kind]["losses"], one[kind]
+            for key in ("train", "val"):
+                vals = ref[key]
+                for a, b in zip(ours[key], vals):
+                    if not abs(a - b) <= 1e-4 * abs(b):
+                        fail(f"{kind} pretraining's {key} loss over "
+                             f"{world} ranks {ours[key]}, in one process "
+                             f"{vals}")
+            scale = max(float(v.abs().max()) for v in ref_state.values()
+                        if v.is_floating_point())
+            errs[kind] = max(float((ranks[0][kind]["state"][k] - v).abs()
+                                   .max()) for k, v in ref_state.items()
+                             if v.is_floating_point()) / scale
+            if not errs[kind] <= STEP_REL:
+                fail(f"{kind} pretraining over {world} ranks moved the "
+                     f"parameters {errs[kind]:.3e} of their scale from one "
+                     f"process's")
+        print(f"[data parallel] pretraining, {DP_STEPS} steps at {world} x "
+              f"{DP_BATCH} items against one process at {world * DP_BATCH}: "
+              f"losses {[ranks[0][k]['losses'] for k in ('occ', 'vis')]} "
+              f"and {[one[k][0] for k in ('occ', 'vis')]}; parameters apart "
+              f"by {errs} of their scale", flush=True)
+
+        # The last group SCONE step in one process, on the ranks' inputs.
+        members = []
+        for r in range(world):
+            members += [_to(x, "cuda") for x in torch.load(
+                os.path.join(tmp, f"dp_members_{r}.pt"), weights_only=False)]
+        params = dp_group_params(cfg, 2)
+        held_losses, held = dp_group_step(params, ranks[0]["held_nets"],
+                                          members, 0)
+        step_err = {k: grad_error(ranks[0]["held"][1][k], held[k])
+                    for k in ("occ", "vis")}
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(ranks[0]["held"][0], held_losses) if b)
+        print(f"[data parallel] group SCONE step over {world} ranks against "
+              f"one process on the same inputs: gradient errors {step_err} "
+              f"of max |g|, losses {ranks[0]['held'][0]} and {held_losses}",
+              flush=True)
+        if not (max(step_err.values()) <= STEP_REL and loss_rel <= 1e-5):
+            fail(f"the group SCONE step over {world} ranks differs from one "
+                 f"process's: {step_err}, losses apart by {loss_rel}")
+    for r in ranks:
+        print(f"[data parallel] rank {r['rank']}: pretraining "
+              f"{r['seconds']['pretrain']:.2f} s, scene group "
+              f"{r['seconds']['group']:.2f} s ({world} scenes x {DP_POSES} "
+              f"poses x 2 epochs), peak {r['peak_gib']:.2f} GiB, "
+              f"{len(r['checks'])} replica checks; group losses "
+              f"{r['group_losses']}", flush=True)
+    print(f"[data parallel] {t_ranks:.2f} s for the ranks (spawn included), "
+          f"{t_one:.2f} s for the one-process pretraining (peak "
+          f"{one_peak:.2f} GiB)", flush=True)
+    return backend, world, [row for r in ranks for row in r["rows"]]
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -4124,6 +4610,9 @@ def main():
     demos = phase_demos()
     small = phase_trajectory(gen, "trajectory", 0, ["sh_visibility"])
     phase_reference(gen, small["rt"], small["model"], small["call"])
+    # The trajectories' runtimes, networks and scenes go before the later
+    # phases (the data-parallel ranks share the card with this process).
+    del small
     suite = phase_suite_eval()
     state = gen.get_state()
     big = phase_trajectory(gen, "scene scale", SCENE_LEVELS, SCENE_KERNELS)
@@ -4139,6 +4628,7 @@ def main():
     scorer = (big["c_pad"], 1, big["seq_len"])
     rows.append(kernel_row(gen, launches_at(big["counts"], scorer), worst,
                            scorer))
+    del big
     # The suite's scorer (eval_params: seq_len 512) at its most frequent
     # candidate bucket.
     at = suite["sh_visibility_at"]
@@ -4168,28 +4658,35 @@ def main():
         rows += [scone_row, backward,
                  kernel_row(gen, launches_at(train["counts"], decision),
                             worst, decision, "device decision"),
-                 dict(next(r for r in rows if r["name"] == "rasterize_tiled"),
-                      name="rasterize_tiled (train, device memory)",
-                      launches=train["counts"]["rasterize_tiled"])]
+                 moved_row(train["counts"], train.pop("move"),
+                           "train, device memory")]
         phase_depth_pretrain(train["frames_dirs"], train.pop("model"))
     finally:
         shutil.rmtree(keep)
     phase_syncs()
-    # The group phase's launches of the train path's kernels, beside the
-    # rows measured above at the same shapes.
-    group = phase_train_group()
-    fused = next(r for r in rows if r["name"] == "rasterize_tiled")
+    # The group phase's launches of the train path's kernels: its own move
+    # held and timed; B3's two beside the rows measured above at the same
+    # shapes in this process.
+    group, group_move = phase_train_group()
     rows += [
-        dict(fused, name=f"rasterize_tiled (train group {GROUP})",
-             launches=group["rasterize_tiled"]),
+        moved_row(group, group_move, f"train group {GROUP}"),
         dict(scone_row, name=f"sh_visibility (SCONE step, group {GROUP}, "
              f"{'x'.join(map(str, step))})",
              launches=launches_at(group, step)),
         dict(backward, name=f"sh_visibility_backward (train group {GROUP})",
-             launches=group["sh_visibility_backward"])]
+             launches=group["sh_visibility_backward_at"].get(step, 0))]
     rows.append(phase_scene_data())
-    lane = phase_scone_pretrain()
-    rows += lane["rows"]
+    lane_dir = tempfile.mkdtemp(prefix="chip_smoke_shapenet_",
+                                dir=_work_dir())
+    try:
+        lane = phase_scone_pretrain(lane_dir)
+        rows += lane["rows"]
+        # On the lane's ShapeNet root, its networks freed first.
+        # Each rank's rows, measured by the rank at its own shapes.
+        _, _, dp_rows = phase_data_parallel(lane["root"])
+    finally:
+        shutil.rmtree(lane_dir)
+    rows += dp_rows
     rows += pretrain_sh_rows(gen, lane["counts"], worst, worst_backward)
     rows += demo_rows(gen, demos, worst)
     smi = subprocess.run(
@@ -4215,8 +4712,16 @@ if __name__ == "__main__":
     parser.add_argument("--demos", action="store_true",
                         help="run only the demos, the tester's exports and "
                         "the agreement tool (phase_demos)")
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="run only the data-parallel phase, on a "
+                        "ShapeNet-format root of its own "
+                        "(phase_data_parallel)")
+    parser.add_argument("--replay-depth-pretrain-hold", metavar="FILE",
+                        help="replay a failed learn_pose depth hold from "
+                        "the file the smoke saved (replay_depth_hold)")
     args = parser.parse_args()
-    if args.depth_holds or args.group_times or args.demos:
+    if (args.depth_holds or args.group_times or args.demos
+            or args.data_parallel or args.replay_depth_pretrain_hold):
         if not torch.cuda.is_available():
             fail("CUDA is not available")
         phase_build()
@@ -4224,6 +4729,17 @@ if __name__ == "__main__":
             phase_depth_holds(args.depth_holds)
         elif args.demos:
             phase_demos()
+        elif args.data_parallel:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_root_",
+                                             dir=_work_dir()) as tmp:
+                root = os.path.join(tmp, "ShapeNetCore.v1")
+                shapenet_suite(root)
+                generate_shapenet_data.generate(
+                    root, shapenet.ShapeNetGTConfig(), device="cuda",
+                    verbose=False)
+                phase_data_parallel(root)
+        elif args.replay_depth_pretrain_hold:
+            replay_depth_hold(args.replay_depth_pretrain_hold)
         else:
             phase_group_times()
     else:

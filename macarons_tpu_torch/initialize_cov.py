@@ -10,12 +10,18 @@ under the repository (the port's ``.pt`` or the JAX package's
 ``.msgpack``; random weights if there are none), as the JAX package's
 initialize_cov.py reads them. Writes
 ``<weights-dir>/{unvalidated,best_unval}_<scone_vis_model_name>.{pt,json}``.
+
+On CUDA it trains data-parallel over every visible card, one process per
+card (NCCL), at a global batch of ``batch_size`` x cards, as the JAX
+package's pretrainer takes every device; on one card, or the CPU, in one
+process. Under ``torchrun --nproc_per_node N`` each process is a rank.
 """
 
 import argparse
 import os
 
 from .config import load_params
+from .parallel import distributed
 from .trainers.pretrain_vis import run_training
 
 REPO_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -33,14 +39,19 @@ def main(argv=None):
         REPO_DIR, "weights/scone/coverage_gain"))
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
-    params = load_params(args.config)
+    distributed.launch(train, (args.config, args.data_path, args.weights_dir,
+                               args.device), device=args.device)
+
+
+def train(config, data_path, weights_dir, device):
+    """One rank's run (or the only one)."""
+    params = load_params(config)
     occ_name = params.get("scone_occ_model_name",
                           "best_unval_pretrained_scone_occ")
     occ_path = os.path.join(REPO_DIR, "weights/scone/occupancy",
                             occ_name.replace(".pth", ""))
-    run_training(params, data_path=args.data_path,
-                 weights_dir=args.weights_dir, occ_weights_path=occ_path,
-                 device=args.device)
+    run_training(params, data_path=data_path, weights_dir=weights_dir,
+                 occ_weights_path=occ_path, device=device)
 
 
 if __name__ == "__main__":

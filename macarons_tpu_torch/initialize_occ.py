@@ -8,12 +8,18 @@ Reads the JAX package's pretraining configs; the data path holds the
 ShapeNet split files and each model's ``tensors/`` (see
 ``python -m macarons_tpu_torch.data.generate_shapenet_data``). Writes
 ``<weights-dir>/{unvalidated,best_unval}_<scone_occ_model_name>.{pt,json}``.
+
+On CUDA it trains data-parallel over every visible card, one process per
+card (NCCL), at a global batch of ``batch_size`` x cards, as the JAX
+package's pretrainer takes every device; on one card, or the CPU, in one
+process. Under ``torchrun --nproc_per_node N`` each process is a rank.
 """
 
 import argparse
 import os
 
 from .config import load_params
+from .parallel import distributed
 from .trainers.pretrain_occ import run_training
 
 REPO_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -30,8 +36,14 @@ def main(argv=None):
         REPO_DIR, "weights/scone/occupancy"))
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
-    run_training(load_params(args.config), data_path=args.data_path,
-                 weights_dir=args.weights_dir, device=args.device)
+    distributed.launch(train, (args.config, args.data_path, args.weights_dir,
+                               args.device), device=args.device)
+
+
+def train(config, data_path, weights_dir, device):
+    """One rank's run (or the only one)."""
+    run_training(load_params(config), data_path=data_path,
+                 weights_dir=weights_dir, device=device)
 
 
 if __name__ == "__main__":

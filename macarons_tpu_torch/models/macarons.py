@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from ..config import Params
+from ..parallel import distributed
 from ..utils.checkpoint import checkpoint_exists  # noqa: F401 (re-exported)
 from .attention import init_weights
 from .many_depth import ManyDepth
@@ -109,18 +110,21 @@ def create_optimizers(params: Params, model: MacaronsModel
 def save_macarons(path: str, model: MacaronsModel, metadata=None,
                   opt_states: Optional[Dict] = None):
     """``<path>.pt`` with the networks (and the optimizers, if given) and
-    ``<path>.json`` with ``metadata``."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tree = {"occ": model.occ.state_dict(), "vis": model.vis.state_dict(),
-            "depth": (model.depth.state_dict() if model.depth is not None
-                      else None)}
-    if opt_states is not None:
-        tree.update({f"{k}_opt": v.state_dict()
-                     for k, v in opt_states.items()})
-    torch.save(tree, path + ".pt")
-    if metadata is not None:
-        with open(path + ".json", "w") as f:
-            json.dump(metadata, f, indent=2, default=float)
+    ``<path>.json`` with ``metadata``; across data-parallel ranks rank 0
+    writes, and every rank waits for it."""
+    if distributed.is_master():
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tree = {"occ": model.occ.state_dict(), "vis": model.vis.state_dict(),
+                "depth": (model.depth.state_dict() if model.depth is not None
+                          else None)}
+        if opt_states is not None:
+            tree.update({f"{k}_opt": v.state_dict()
+                         for k, v in opt_states.items()})
+        torch.save(tree, path + ".pt")
+        if metadata is not None:
+            with open(path + ".json", "w") as f:
+                json.dump(metadata, f, indent=2, default=float)
+    distributed.barrier()
 
 
 def load_macarons(path: str, model: MacaronsModel,

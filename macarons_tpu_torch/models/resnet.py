@@ -5,7 +5,8 @@ NCHW, PyTorch's layout; the submodules carry the names Flax gives their
 counterparts, so a Flax variables tree maps onto a ``state_dict`` by path
 (utils.convert.flax_to_torch). BatchNorm is Flax's (``FlaxBatchNorm2d``):
 eps 1e-5; in eval mode it normalises with the running statistics, in train
-mode with the batch's, and updates the running ones as Flax does.
+mode with the batch's, and updates the running ones as Flax does; over
+data-parallel ranks the batch is the union of every rank's.
 
 ``dtype`` (None or ``torch.bfloat16``) is the convolutions' compute type,
 as Flax's ``nn.Conv(dtype=...)``: a conv casts its input, weight and bias
@@ -22,6 +23,8 @@ from typing import Dict, Mapping, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel import mesh
 
 
 class Conv2d(nn.Conv2d):
@@ -56,17 +59,56 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         x = x.to(self.weight.dtype)
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        y, mean, var = _RankBatchNorm.apply(x, self.weight, self.bias,
+                                            self.eps)
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(
                 self.momentum * mean)
             self.running_var.mul_(1.0 - self.momentum).add_(
                 self.momentum * var)
             self.num_batches_tracked += 1
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean[None, :, None, None]) * mul[None, :, None, None]
-                + self.bias[None, :, None, None])
+        return y
+
+
+class _RankBatchNorm(torch.autograd.Function):
+    """Flax's train-mode BatchNorm over the union of every rank's batch
+    (one process's batch outside a data-parallel group).
+
+    Forward: (sum x, sum x^2, count) per channel summed over the ranks,
+    mean = E[x], var = max(E[x^2] - E[x]^2, 0). Backward: with
+    xh = (x - mean) / sqrt(var + eps) and g = dy * weight, the global
+    sums (sum g, sum g xh) give dx = (g - E[g] - xh E[g xh]) / sqrt(var +
+    eps); the weight's and bias's gradients are this rank's sums, which the
+    gradient all-reduce adds up."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        C = x.shape[1]
+        stats = torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
+                           x.new_full((1,), x.numel() / C)])
+        mesh.all_reduce_(stats)
+        n = stats[-1]
+        mean = stats[:C] / n
+        var = torch.clamp(stats[C:2 * C] / n - mean * mean, min=0.0)
+        inv = torch.rsqrt(var + eps)
+        xh = (x - mean[None, :, None, None]) * inv[None, :, None, None]
+        ctx.save_for_backward(xh, inv, weight, n)
+        return (xh * weight[None, :, None, None] + bias[None, :, None, None],
+                mean, var)
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xh, inv, weight, n = ctx.saved_tensors
+        C = xh.shape[1]
+        sums = torch.cat([dy.sum(dim=(0, 2, 3)),
+                          (dy * xh).sum(dim=(0, 2, 3))])
+        d_bias, d_weight = sums[:C].clone(), sums[C:].clone()
+        mesh.all_reduce_(sums)
+        mean_g = (sums[:C] * weight / n)[None, :, None, None]
+        mean_gxh = (sums[C:] * weight / n)[None, :, None, None]
+        g = dy * weight[None, :, None, None]
+        dx = (g - mean_g - xh * mean_gxh) * inv[None, :, None, None]
+        return dx, d_weight, d_bias, None
 
 
 def batch_norm(features: int) -> FlaxBatchNorm2d:

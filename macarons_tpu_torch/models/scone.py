@@ -16,6 +16,7 @@ import torch.nn as nn
 
 from ..ops.cuda.sh_visibility import MAX_HARMONIC_RANK, sh_visibility
 from ..ops.knn import knn_points_many, smallest_k
+from ..parallel import mesh
 from .attention import Dense, Embedding, Encoder, PCTransformer, _act, \
     gelu, layer_norm
 
@@ -47,12 +48,14 @@ def _subsample(length: int, total: int, valid=None, gen=None):
     if valid is None:
         if gen is None or length >= total:
             return torch.arange(min(length, total))
-        return torch.randperm(total, generator=gen, device=gen.device)[:length]
+        base = mesh.base_generator(gen)
+        return torch.randperm(total, generator=base, device=base.device)[
+            :length]
     if gen is None:
         noise = torch.arange(total, dtype=torch.float32, device=device) / total
         noise = noise.expand(valid.shape)
     else:
-        noise = torch.rand(valid.shape, generator=gen, device=device)
+        noise = mesh.rand_rows(gen, valid.shape, device)
     scores = noise + torch.where(valid, 0.0, 2.0)
     return smallest_k(scores, min(length, total))[1]
 

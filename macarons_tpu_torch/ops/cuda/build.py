@@ -6,12 +6,15 @@ Hopper (``sm_90a``) by ``torch.utils.cpp_extension.load`` into
 ``macarons_tpu_torch/_build/<name>/`` and opened with ``ctypes``; a source
 may add its own ``nvcc`` flags. Nothing is built when a module is imported:
 the CPU path never needs a compiler. Different sources build in parallel
-when their first uses come from different threads.
+when their first uses come from different threads; processes (the ranks of
+a data-parallel run) take a file lock per source, so one builds and the
+others then load its library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import threading
 
@@ -44,9 +47,11 @@ def load_library(name: str, source: str, extra_flags=(),
         os.makedirs(build_dir, exist_ok=True)
         flags = (CUDA_FLAGS + list(extra_flags)
                  + (["-Xptxas=-v"] if verbose else []))
-        path = load(name=name, sources=[os.path.join(CSRC_DIR, source)],
-                    extra_cuda_cflags=flags, build_directory=build_dir,
-                    is_python_module=False, verbose=verbose)
+        with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as held:
+            fcntl.flock(held, fcntl.LOCK_EX)
+            path = load(name=name, sources=[os.path.join(CSRC_DIR, source)],
+                        extra_cuda_cflags=flags, build_directory=build_dir,
+                        is_python_module=False, verbose=verbose)
         lib = ctypes.CDLL(path)
         _libs[name] = lib
         return lib

@@ -214,7 +214,8 @@ def sh_visibility_backward(pts, X_cam, out, grad_out, use_sigmoid: bool = True):
     """Gradient of the coefficients: pts (B, L, P>=3), X_cam (B, C, 3), the
     forward's output and its gradient (B, C, L) -> (B, L, 64). CPU tensors
     take the plain twin; CUDA tensors launch the backward kernel (counted in
-    ``sh_visibility_backward.launches``)."""
+    ``sh_visibility_backward.launches``, and by (B, C, L) in
+    ``sh_visibility_backward.launches_at``)."""
     if pts.device.type == "cpu":
         return sh_visibility_backward_plain(pts, X_cam, out, grad_out,
                                             use_sigmoid)
@@ -235,10 +236,12 @@ def sh_visibility_backward(pts, X_cam, out, grad_out, use_sigmoid: bool = True):
             X_cam.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
             grad.data_ptr(), B, C, L, int(bool(use_sigmoid)))
     sh_visibility_backward.launches += 1
+    sh_visibility_backward.launches_at[(B, C, L)] += 1
     return grad
 
 
 sh_visibility_backward.launches = 0
+sh_visibility_backward.launches_at = Counter()
 
 
 class _SHVisibility(torch.autograd.Function):

@@ -31,6 +31,7 @@ uses it too.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import numpy as np
 import torch
@@ -519,8 +520,8 @@ def rasterize_tiled(f9, pface, starts, counts, lane_faces, lane_valid,
     has the smallest z, then the smallest face id. Returns (zbuf, face id,
     b0, b1), each (R, tile * tile). CPU tensors take the plain version (the
     two twins and ``merge_passes``); CUDA tensors launch the kernel
-    (counted in ``rasterize_tiled.launches``), ``item`` faces per work
-    item."""
+    (counted in ``rasterize_tiled.launches``, and by (N, F) in
+    ``rasterize_tiled.launches_at``), ``item`` faces per work item."""
     if f9.device.type == "cpu":
         return rasterize_tiled_plain(f9, pface, starts, counts, lane_faces,
                                      lane_valid, lane_counts, tile, TW, H, W,
@@ -553,10 +554,12 @@ def rasterize_tiled(f9, pface, starts, counts, lane_faces, lane_valid,
                   lane_counts=lane_counts, k_chunk=int(k_chunk),
                   lane_face=lane_faces, faces=f9.transpose(1, 2).contiguous())
     rasterize_tiled.launches += 1
+    rasterize_tiled.launches_at[(N, F)] += 1
     return out
 
 
 rasterize_tiled.launches = 0
+rasterize_tiled.launches_at = Counter()
 
 
 def flops(n_faces: int, rows: int, P: int = 256) -> int:

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from .geometry import FoVCamera, get_cartesian_coords, get_spherical_coords
 from .harmonics import real_spherical_harmonics_np
 from .sampling import cumsum_rows
@@ -218,8 +219,7 @@ def sample_proxy_points(gen, X_world, preds, view_harmonics, n_sample: int,
             safe = torch.where(total > 0, probs, torch.ones_like(probs))
             cdf = cumsum_rows(safe)
             cdf = cdf / cdf[..., -1:]
-            u = torch.rand(*lead, n_sample, generator=gen,
-                           device=X_world.device)
+            u = mesh.rand_rows(gen, (*lead, n_sample), X_world.device)
             idx = torch.clamp(torch.searchsorted(cdf.contiguous(), u), 0,
                               N - 1)
         mask = (total > 0).expand(*lead, n_sample) & torch.gather(sel, -1, idx)

@@ -1,15 +1,17 @@
-"""A scene group's SCONE step on one card (port of
-macarons_tpu/parallel/scene_dp.py:make_parallel_scone_step).
+"""A scene group's SCONE step, on one card or over data-parallel ranks
+(port of macarons_tpu/parallel/scene_dp.py:make_parallel_scone_step).
 
 The reference trains one scene per GPU and averages the gradients with
 DDP; the JAX package stacks the group's scenes, padded to common grid
-shapes, and takes the gradient of the mean of the per-scene losses in one
-program. Here the scenes' losses are computed one after another, each
-scene's graph freed by its own backward of ``loss_s / S`` into the
-accumulated gradients, and one AdamW step follows: the mean's gradient up
-to float32 summation order, at one scene's peak memory. So no grid is
-padded or stacked, and nothing of the JAX module's padding and sharding
-has a counterpart.
+shapes, shards the scene axis over its mesh and takes the gradient of the
+mean of the per-scene losses in one program. Here each rank holds its
+contiguous block of the group's S scenes and computes their losses one
+after another, each scene's graph freed by its own backward of
+``loss_s / S`` into the accumulated gradients; the gradients are summed
+over the ranks and every rank takes one AdamW step: the mean's gradient
+up to float32 summation order, at one scene's peak memory. So no grid is
+padded or stacked, and nothing of the JAX module's padding has a
+counterpart.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from ..ops.geometry import FoVCamera
 from ..scene import grid as G
 from ..scene import proxy as P
 from ..scene import runtime as R
+from . import mesh
 
 
 @dataclass
@@ -53,13 +56,17 @@ def group_scone_step(rt, opt: torch.optim.Optimizer,
                      cell_noise: Optional[Sequence] = None,
                      sample_idx: Optional[Sequence] = None):
     """One AdamW step of SconeOcc and SconeVis on mean_s(occ_s + cov_s)
-    over ``group``. Scene by scene, the runtime ``rt`` is bound to the
-    scene's cell table, its two losses are computed
-    (``MacaronsRuntime.scone_losses``, drawing the cell ranking and the MC
-    sample from ``gen`` unless ``cell_noise[s]`` and ``sample_idx[s]`` are
-    given) and ``(occ_s + cov_s) / S`` is back-propagated. Returns the
-    group's mean (loss, occ_loss, cov_loss), detached."""
-    S = len(group)
+    over the group: ``group`` is this rank's scenes of it, and the group
+    has S = len(group) x the data-parallel world. Scene by scene, the
+    runtime ``rt`` is bound to the scene's cell table, its two losses are
+    computed (``MacaronsRuntime.scone_losses``, drawing the cell ranking
+    and the MC sample from ``gen``, or from ``gen[s]`` given one generator
+    per scene, unless ``cell_noise[s]`` and ``sample_idx[s]`` are given)
+    and ``(occ_s + cov_s) / S`` is back-propagated; the gradients are
+    summed over the ranks. Returns the group's mean (loss, occ_loss,
+    cov_loss), detached."""
+    S = len(group) * mesh.world()
+    gens = gen if isinstance(gen, (list, tuple)) else [gen] * len(group)
     opt.zero_grad(set_to_none=True)
     occ_sum = cov_sum = 0.0
     for s, x in enumerate(group):
@@ -70,12 +77,16 @@ def group_scone_step(rt, opt: torch.optim.Optimizer,
             x.proxy, x.surface, x.prediction_camera, x.close_mask,
             x.visited_cams, x.visited_X, x.supervision_gains, x.field,
             n_supervision, box_diag, x.cfg.resolution, n_cells_active,
-            x.sup_occ, gen,
+            x.sup_occ, gens[s],
             None if cell_noise is None else cell_noise[s],
             None if sample_idx is None else sample_idx[s])
         ((occ_loss + cov_loss) / S).backward()
         occ_sum = occ_sum + occ_loss.detach()
         cov_sum = cov_sum + cov_loss.detach()
+    if mesh.world() > 1:
+        mesh.all_reduce_grads(p for g in opt.param_groups
+                              for p in g["params"])
+        occ_sum, cov_sum = mesh.all_reduce_(torch.stack([occ_sum, cov_sum]))
     opt.step()
     occ, cov = occ_sum / S, cov_sum / S
     return occ + cov, occ, cov

@@ -300,7 +300,8 @@ def _upsample_nearest(d, H: int, W: int):
 
 def depth_loss(model, cfg: DepthBatchConfig, batch, alpha,
                use_perfect_depth: bool = False, augment=None, draws=None,
-               gen: Optional[torch.Generator] = None):
+               gen: Optional[torch.Generator] = None,
+               row_share: float = 1.0):
     """The depth step with its loss: relative poses, augmentation, ManyDepth
     (in whatever mode ``model`` is in: train mode uses and updates the batch
     statistics), the error mask, and (pose + reconstruction + regularity)
@@ -308,6 +309,11 @@ def depth_loss(model, cfg: DepthBatchConfig, batch, alpha,
 
     ``augment`` defaults to ``cfg.data_augmentation``; its draws come from
     ``gen`` unless injected as ``draws`` (see ``sample_augmentation``).
+    ``row_share`` is this batch's share of the rows of a global batch that
+    data-parallel ranks split: the terms that are means over the batch
+    (the pose and regularity losses, the unmasked reconstruction loss) are
+    scaled by it, so the ranks' losses add up to the global batch's; the
+    masked reconstruction loss is a sum over the images and stays.
     Returns (loss, depth (B, H, W, 1), mask, error_mask, pose, gt_pose);
     depth and masks are in the frame's own orientation and carry no grad."""
     augment = cfg.data_augmentation if augment is None else augment
@@ -372,7 +378,9 @@ def depth_loss(model, cfg: DepthBatchConfig, batch, alpha,
             images, alpha_images, mask, cameras, alpha_cams, d,
             ssim_factor=cfg.ssim_factor, use_mask=cfg.use_depth_mask,
             zfar=cfg.zfar, padding_mode=cfg.padding_mode)
-    loss = (p_loss + rec_loss + reg_loss) / 4.0
+    rec_share = 1.0 if cfg.use_depth_mask else row_share
+    loss = (p_loss * row_share + rec_loss * rec_share
+            + reg_loss * row_share) / 4.0
 
     depth = depths[0].detach()
     if flipped:

@@ -14,6 +14,14 @@ event has completed; a read or rewrite of a file waits for its queued write,
 and a directory listing for all of them. Frame sequences are read through
 the native loader (``utils/native_loader.py``), all files at once.
 
+Across the processes of a data-parallel run (``parallel.distributed``)
+each rank holds its own ``Memory`` of every scene directory: only a
+scene's owner (the rank training it) writes that scene's files, and the
+registry of queued writes is each process's own, so a rank drains its
+writes (``flush``) and the ranks meet at a barrier before any replay that
+can read another rank's scene (``trainers.train_macarons`` does so before
+each scene group's trajectories and at every epoch's end).
+
 ``DeviceMemory`` keeps a training run's memory on the card: each (scene,
 trajectory slot) has a ``FrameStore`` of its frames and a ``DepthStore`` of
 its remap's depths, the snapshots and poses are kept as tensors, and the

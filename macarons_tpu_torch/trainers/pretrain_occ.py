@@ -1,11 +1,20 @@
 """SconeOcc pretraining on ShapeNet GT occupancy fields (port of
-macarons_tpu/trainers/pretrain_occ.py), on one card.
+macarons_tpu/trainers/pretrain_occ.py), on one card or data-parallel over
+the ranks of ``parallel.distributed``.
 
 Per step: a fixed-shape batch assembled on the host
 (data.datasets.assemble_occ_batch), the clouds, queries and visited
 cameras moved into each item's prediction-camera view space and
 normalised into its prediction box, view harmonics of the queries,
 SconeOcc, MSE against the GT occupancy, AdamW under the warm-up schedule.
+
+Over W ranks, as the JAX package over a mesh of W devices, the global
+batch is ``batch_size`` x W: every rank assembles the same global batch
+from the same numpy generator and keeps its contiguous rows; SconeOcc's
+down-sample draws are taken at the global batch's shape and sliced
+(``parallel.mesh.RowDraws``); each rank back-propagates its share of the
+global mean and the gradients are summed over the ranks before one AdamW
+step on every rank. Rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from ..ops.view_state import (
     normalize_points_in_prediction_box,
     view_harmonics_weights,
 )
+from ..parallel import distributed, mesh
 from ..utils.checkpoint import checkpoint_exists, load_checkpoint, \
     save_checkpoint
 from ..utils.device import make_generator, resolve_device
@@ -100,7 +110,10 @@ def batch_to_device(batch, device):
 def occ_loss(params: Params, model: SconeOcc, consts: StepConstants, batch,
              generator=None):
     """MSE of SconeOcc's occupancy on a device batch; ``generator``
-    randomises SconeOcc's down-samples (None: deterministic)."""
+    randomises SconeOcc's down-samples (None: deterministic). Over several
+    ranks ``batch`` is this rank's rows and the loss is its share of the
+    global batch's MSE (the rows' mean over the world); ``generator`` then
+    draws at the global batch's shape."""
     B = batch["pc"].shape[0]
     idx = batch["pred_cam_idx"].long()
     pc = to_prediction_box(params, consts, batch["pc"], idx)
@@ -112,8 +125,9 @@ def occ_loss(params: Params, model: SconeOcc, consts: StepConstants, batch,
     vh = view_harmonics(params, consts, X, X_view, batch["view_mask"])
     if params.get("no_view_harmonics", False):
         vh = vh * 0.0
-    pred = model(pc, X, vh, pc_mask=batch["pc_mask"], generator=generator)
-    return torch.mean((pred - batch["occs"]) ** 2)
+    pred = model(pc, X, vh, pc_mask=batch["pc_mask"],
+                 generator=mesh.rank_rows(generator, B))
+    return torch.mean((pred - batch["occs"]) ** 2) / mesh.world()
 
 
 def make_optimizer(params: Params, model: torch.nn.Module,
@@ -132,11 +146,13 @@ def make_optimizer(params: Params, model: torch.nn.Module,
 
 
 def optimizer_step(opt, schedule, step: int, loss):
-    """One AdamW step at the schedule's rate for ``step``."""
+    """One AdamW step at the schedule's rate for ``step``; over several
+    ranks, on the gradients summed over them."""
     for g in opt.param_groups:
         g["lr"] = schedule(step)
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    mesh.all_reduce_grads(p for g in opt.param_groups for p in g["params"])
     opt.step()
 
 
@@ -149,14 +165,17 @@ def run_training(params: Params, data_path: Optional[str] = None,
     counts, ``unvalidated_<name>`` (the resume point, with the optimizer)
     and ``best_unval_<name>`` checkpoints every epoch; with
     ``start_from_scratch`` false it resumes from ``unvalidated_<name>``.
-    Returns (model, train losses, validation losses)."""
+    In a group of W ranks (``parallel.distributed``) the global batch is
+    ``batch_size`` x W and the losses are the global batches'. Returns
+    (model, train losses, validation losses)."""
     dev = resolve_device(device)
     data_path = data_path or params.data_path
     rs = np.random.default_rng(params.get("random_seed", 42))
     gen = make_generator(dev, params.get("torch_seed", 5))
     train_ds, val_ds, _ = D.get_shapenet_datasets(data_path)
-    batch_size = params.batch_size
+    batch_size = params.batch_size * mesh.world()
     steps_per_epoch = max(len(train_ds) // batch_size, 1)
+    verbose = verbose and distributed.is_master()
 
     model = init_weights(build_model(params).to(dev), gen)
     opt, schedule = make_optimizer(params, model, steps_per_epoch)
@@ -173,16 +192,18 @@ def run_training(params: Params, data_path: Optional[str] = None,
         best_loss = float(meta.get("best_loss", best_loss))
         train_losses = list(meta.get("train_losses", []))
         val_losses = list(meta.get("val_losses", []))
+    mesh.broadcast_module(model)
 
     consts = step_constants(params, dev)
     X_cam_np = consts.X_cam.cpu().numpy()
 
     def make_batch(paths, n_views=None):
-        return batch_to_device(D.assemble_occ_batch(
+        """This rank's rows of the global batch of ``paths``."""
+        return batch_to_device(mesh.shard_batch(D.assemble_occ_batch(
             rs, paths, X_cam_np, params.n_view_min, params.n_view_max,
             params.seq_len, params.n_sample, n_views=n_views,
             prediction_in_random_camera_space=params.get(
-                "prediction_in_random_camera_space", False)), dev)
+                "prediction_in_random_camera_space", False))), dev)
 
     for epoch in range(start_epoch, params.epochs):
         t0 = time.time()
@@ -197,7 +218,7 @@ def run_training(params: Params, data_path: Optional[str] = None,
             loss = occ_loss(params, model, consts, make_batch(paths), gen)
             optimizer_step(opt, schedule, step, loss)
             step += 1
-            epoch_loss += loss.item()
+            epoch_loss += mesh.all_reduce_sum(loss).item()
             n_steps += 1
         train_loss = epoch_loss / max(n_steps, 1)
         train_losses.append(train_loss)
@@ -213,8 +234,8 @@ def run_training(params: Params, data_path: Optional[str] = None,
                     break
                 nv = n_views_all[vi:vi + len(paths)]
                 vi += len(paths)
-                val_loss += float(occ_loss(params, model, consts,
-                                           make_batch(paths, nv), gen))
+                val_loss += float(mesh.all_reduce_sum(occ_loss(
+                    params, model, consts, make_batch(paths, nv), gen)))
                 n_val += 1
         val_loss /= max(n_val, 1)
         val_losses.append(val_loss)

@@ -9,6 +9,15 @@ coverage gain of all 52 candidates in one launch of the SH-visibility
 kernel (B3) per batch, whose backward kernel carries the loss's gradient
 to SconeVis. The loss is the uncentred L1 between predicted and GT gain
 distributions, the GT from the precomputed coverage matrices.
+
+Over W ranks (``parallel.distributed``) the global batch is ``batch_size``
+x W, as the JAX package's over a mesh: every rank assembles the global
+batch and keeps its rows, the proxy points are drawn at the global shape
+and sliced, and each item's SconeOcc down-samples and Monte-Carlo sample
+come from a generator of its own, seeded from a draw at the global batch's
+shape, so an item draws the same on any rank and at any world. The
+gradients of the ranks' shares of the loss are summed before the AdamW
+step, and the NBV metric's sums are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from ..models.scone import (
 )
 from ..ops.geometry import FoVCamera, look_at_view_transform
 from ..ops.view_state import filter_proxy_points_mask, sample_proxy_points
+from ..parallel import distributed, mesh
 from ..utils.checkpoint import checkpoint_exists, load_checkpoint, \
     save_checkpoint
 from ..utils.device import make_generator, resolve_device
@@ -102,10 +112,13 @@ def vis_forward(params: Params, occ_model: SconeOcc, vis_model: SconeVis,
 
     ``draws`` injects the proxy points (``"X"``, (B, N, 3)) and the
     Monte-Carlo sample indices (``"sample_idx"``, (B, seq_len)); without a
-    ``gen``, SconeOcc subsamples deterministically."""
+    ``gen``, SconeOcc subsamples deterministically. Over several ranks
+    ``batch`` is this rank's rows; ``gen``'s draws are the global batch's
+    (``item_generators``)."""
     draws = draws or {}
     B = batch["pc"].shape[0]
     dev = batch["pc"].device
+    item_gens = item_generators(gen, B, dev)
     idx = batch["pred_cam_idx"].long()
     pc_n = to_prediction_box(params, consts, batch["pc"], idx)
     X_cam_n = to_prediction_box(
@@ -114,7 +127,7 @@ def vis_forward(params: Params, occ_model: SconeOcc, vis_model: SconeVis,
         1, batch["view_idx"].long()[..., None].expand(-1, -1, 3))
     X = draws.get("X")
     if X is None:
-        X = proxy_points(params, B, dev, gen)
+        X = mesh.shard_batch(proxy_points(params, B * mesh.world(), dev, gen))
     vh = view_harmonics(params, consts, X, X_view, batch["view_mask"])
     occ_vh = vh * 0.0 if params.get("occ_no_view_harmonics", False) else vh
     vis_vh = vh * 0.0 if params.get("no_view_harmonics", False) else vh
@@ -130,11 +143,11 @@ def vis_forward(params: Params, occ_model: SconeOcc, vis_model: SconeVis,
         with torch.no_grad():
             occ = compute_occupancy_probability(
                 occ_model, pc_n[b:b + 1], X[b:b + 1], occ_vh[b:b + 1],
-                pc_mask=batch["pc_mask"][b:b + 1], generator=gen,
+                pc_mask=batch["pc_mask"][b:b + 1], generator=item_gens[b],
                 max_points_per_pass=max_pass)[0]
         sidx = draws.get("sample_idx")
         p4, h, _, m = sample_proxy_points(
-            gen, X[b], occ, vis_vh[b], params.seq_len,
+            item_gens[b], X[b], occ, vis_vh[b], params.seq_len,
             params.get("min_occ_for_proxy_points", 0.1),
             use_occ_to_sample=params.get("use_occ_to_sample_proxy_points",
                                          True),
@@ -151,12 +164,27 @@ def vis_forward(params: Params, occ_model: SconeOcc, vis_model: SconeVis,
     return gains, gt
 
 
+def item_generators(gen, B: int, device):
+    """One generator per item of this rank's ``B`` rows, each seeded from
+    a draw of one seed per item of the global batch; Nones without
+    ``gen``."""
+    if gen is None:
+        return [None] * B
+    seeds = mesh.shard_batch(torch.randint(
+        0, 2 ** 62, (B * mesh.world(),), generator=gen,
+        device=gen.device)).tolist()
+    return [torch.Generator(device=device).manual_seed(s) for s in seeds]
+
+
 def vis_loss(params, occ_model, vis_model, consts, batch, gen=None,
              draws=None):
-    """(uncentred L1 loss, predicted gains, GT gains)."""
+    """(uncentred L1 loss, predicted gains, GT gains): over several ranks
+    the loss is this rank's share of the global batch's (its rows' mean
+    over the world) and the gains are its rows'."""
     pred, truth = vis_forward(params, occ_model, vis_model, consts, batch,
                               gen, draws)
-    return L.uncentered_l1(pred[..., None], truth[..., None]), pred, truth
+    loss = L.uncentered_l1(pred[..., None], truth[..., None]) / mesh.world()
+    return loss, pred, truth
 
 
 def greedy_optimal_sequences(coverage: np.ndarray, max_len: int) -> np.ndarray:
@@ -206,14 +234,15 @@ def run_training(params: Params, data_path: Optional[str] = None,
     the caller asks for the CPU), on a frozen SconeOcc: training batches,
     validation on the greedy-optimal view sequences with the NBV metric,
     ``unvalidated_<name>`` (the resume point) and ``best_unval_<name>``
-    checkpoints. Returns (model, train losses, validation losses, NBV
-    metrics)."""
+    checkpoints. In a group of W ranks the global batch is ``batch_size``
+    x W. Returns (model, train losses, validation losses, NBV metrics)."""
     dev = resolve_device(device)
     data_path = data_path or params.data_path
     rs = np.random.default_rng(params.get("random_seed", 42))
     gen = make_generator(dev, params.get("torch_seed", 5))
     train_ds, val_ds, _ = D.get_shapenet_datasets(data_path)
-    batch_size = params.batch_size
+    batch_size = params.batch_size * mesh.world()
+    verbose = verbose and distributed.is_master()
     steps_per_epoch = max(len(train_ds) // batch_size, 1)
 
     occ_model = load_occ_model(params, occ_weights_path, dev, gen)
@@ -232,6 +261,7 @@ def run_training(params: Params, data_path: Optional[str] = None,
         train_losses = list(meta.get("train_losses", []))
         val_losses = list(meta.get("val_losses", []))
         nbv_metrics = list(meta.get("nbv_metrics", []))
+    mesh.broadcast_module(model)
 
     consts = step_constants(params, dev)
     X_np = consts.X_cam.cpu().numpy()
@@ -245,19 +275,21 @@ def run_training(params: Params, data_path: Optional[str] = None,
                                        epoch=epoch):
             if max_batches_per_epoch and n_steps >= max_batches_per_epoch:
                 break
-            batch = batch_to_device(assemble_vis_batch(rs, paths, X_np,
-                                                       params), dev)
+            batch = batch_to_device(mesh.shard_batch(assemble_vis_batch(
+                rs, paths, X_np, params)), dev)
             loss, _, _ = vis_loss(params, occ_model, model, consts, batch,
                                   gen)
             optimizer_step(opt, schedule, step, loss)
             step += 1
-            ep_loss += loss.item()
+            ep_loss += mesh.all_reduce_sum(loss).item()
             n_steps += 1
         train_loss = ep_loss / max(n_steps, 1)
         train_losses.append(train_loss)
 
         model.eval()
-        val_loss, n_val, vi, nbv_vals = 0.0, 0, 0, []
+        val_loss, n_val, vi = 0.0, 0, 0
+        # The NBV metric's sum and count, over every rank's items.
+        nbv_sum = torch.zeros(2, dtype=torch.float64, device=dev)
         n_views_all = D.get_validation_n_views_list(
             len(val_ds), params.n_view_min, params.n_view_max)
         for paths in D.iterate_batches(val_ds.paths, batch_size,
@@ -269,20 +301,22 @@ def run_training(params: Params, data_path: Optional[str] = None,
             seqs = [greedy_optimal_sequences(
                 D.get_gt_partial_point_clouds(p)[2], params.n_view_max)
                 for p in paths]
-            hb = assemble_vis_batch(rs, paths, X_np, params, n_views=nv,
-                                    view_sequences=seqs)
+            hb = mesh.shard_batch(assemble_vis_batch(
+                rs, paths, X_np, params, n_views=nv, view_sequences=seqs))
             with torch.no_grad():
                 loss, pred, _ = vis_loss(params, occ_model, model, consts,
                                          batch_to_device(hb, dev), gen)
-            val_loss += float(loss)
+            val_loss += float(mesh.all_reduce_sum(loss))
             pred = pred.cpu().numpy()
-            nbv_vals += [nbv_metric(pred[i], hb["coverage"][i],
-                                    hb["view_idx"][i], hb["view_mask"][i])
-                         for i in range(len(paths))]
+            vals = [nbv_metric(pred[i], hb["coverage"][i], hb["view_idx"][i],
+                               hb["view_mask"][i]) for i in range(len(pred))]
+            nbv_sum += torch.tensor([sum(vals), len(vals)],
+                                    dtype=torch.float64, device=dev)
             n_val += 1
         val_loss /= max(n_val, 1)
         val_losses.append(val_loss)
-        nbv_metrics.append(float(np.mean(nbv_vals)) if nbv_vals else 0.0)
+        total, count = mesh.all_reduce_(nbv_sum).tolist()
+        nbv_metrics.append(total / count if count else 0.0)
 
         meta = {"epoch": epoch, "loss": train_loss, "best_loss": best_loss,
                 "train_losses": train_losses, "val_losses": val_losses,

@@ -39,6 +39,7 @@ The tester (testers/scene.py) uses the inference pieces: ``setup_scene``,
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -70,6 +71,7 @@ from ..ops.projection import (
     signed_distance_to_depth_maps,
 )
 from ..ops.sampling import random_subsample_mask, sample_points_on_mesh_surface
+from ..parallel import distributed, mesh
 from ..parallel.nbv import pad_candidates
 from ..parallel.scene_dp import SceneSupervision, group_scone_step
 from ..scene import grid as G
@@ -131,6 +133,11 @@ class SceneState:
     # The trajectory on the card (device memory) and its lattice's tables.
     episode: Optional[DeviceEpisode] = None
     pose_tables: Optional[PoseSpaceTables] = None
+    # The scene's own random streams for its trajectory (``run_training``
+    # derives them from the run's seeds, the epoch and the scene's index);
+    # without them the trajectory draws from the caller's.
+    gen: Optional[torch.Generator] = None
+    rs: Optional[np.random.Generator] = None
 
     def __post_init__(self):
         dev = self.device
@@ -295,6 +302,9 @@ class MacaronsRuntime:
         self.scone_lr_epochs = list(params.get("scone_lr_epochs") or [])
         self.depth_opt_steps = 0
         self.scone_opt_steps = 0
+        # The rank whose SCONE replay steps the others follow (None: each
+        # step is this rank's alone, or its group's).
+        self.scone_owner: Optional[int] = None
 
     def ring_length(self) -> int:
         """Frames the ring keeps: the supervision window's and the
@@ -363,27 +373,37 @@ class MacaronsRuntime:
         augmentation (draws from ``gen`` or injected), backward, AdamW.
         ``online=False`` computes the loss only and leaves the network as it
         was. Returns (loss, depth, mask, error_mask) with depth and masks
-        detached."""
+        detached.
+
+        Over data-parallel ranks ``batch`` is this rank's rows of the
+        global batch: BatchNorm takes the global batch's statistics, each
+        rank back-propagates its share of the global loss
+        (``depth_loss``'s ``row_share``), the gradients are summed over
+        the ranks before AdamW, the augmentation draw (one per batch) is
+        every rank's, and the loss returned is the global batch's."""
         depth_model = self.model.depth
         use_perfect = self.params.get("use_perfect_depth", False)
+        share = 1.0 / mesh.world()
         if use_perfect or depth_model is None:
             with torch.no_grad():
                 loss, depth, mask, err, _, _ = depth_loss(
                     None, self.dcfg, batch, alpha, use_perfect_depth=True,
-                    draws=draws, gen=gen)
-            return loss, depth, mask, err
+                    draws=draws, gen=gen, row_share=share)
+            return mesh.all_reduce_sum(loss), depth, mask, err
         if online:
             self._next_depth_lr(opt)
             depth_model.train()
             try:
                 loss, depth, mask, err, _, _ = depth_loss(
-                    depth_model, self.dcfg, batch, alpha, draws=draws, gen=gen)
+                    depth_model, self.dcfg, batch, alpha, draws=draws, gen=gen,
+                    row_share=share)
             finally:
                 depth_model.eval()
             opt.zero_grad(set_to_none=True)
             loss.backward()
+            mesh.all_reduce_grads(depth_model.parameters())
             opt.step()
-            return loss.detach(), depth, mask, err
+            return mesh.all_reduce_sum(loss), depth, mask, err
         # Loss only: batch statistics as in training, running ones kept.
         stats = {k: v.clone() for k, v in depth_model.named_buffers()}
         depth_model.train()
@@ -391,11 +411,11 @@ class MacaronsRuntime:
             with torch.no_grad():
                 loss, depth, mask, err, _, _ = depth_loss(
                     depth_model, self.dcfg, batch, alpha, draws=draws,
-                    gen=gen)
+                    gen=gen, row_share=share)
         finally:
             depth_model.eval()
             depth_model.load_state_dict(stats, strict=False)
-        return loss, depth, mask, err
+        return mesh.all_reduce_sum(loss), depth, mask, err
 
     # -- scone optimizer step ------------------------------------------------
     def scone_losses(self, proxy, surface, prediction_camera, close_mask,
@@ -448,17 +468,48 @@ class MacaronsRuntime:
         loss = occ_loss + cov_loss
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if self.scone_owner is not None:
+            # A replay step that the other ranks follow.
+            mesh.broadcast_(torch.ones(1, device=distributed.device()),
+                            self.scone_owner)
+            mesh.broadcast_grads(self._scone_params(opt), self.scone_owner)
         opt.step()
         return loss.detach(), occ_loss.detach(), cov_loss.detach()
+
+    @staticmethod
+    def _scone_params(opt):
+        return [p for g in opt.param_groups for p in g["params"]]
+
+    def follow_scone_steps(self, opt, owner: int) -> int:
+        """Take the SCONE replay steps of rank ``owner`` (each announced,
+        then its gradients broadcast) until it ends its replay
+        (``end_scone_replay``). Returns the number of steps."""
+        n = 0
+        while True:
+            flag = mesh.broadcast_(torch.zeros(1, device=distributed.device()),
+                                   owner)
+            if float(flag) == 0.0:
+                return n
+            self._next_scone_lr(opt)
+            opt.zero_grad(set_to_none=True)
+            mesh.broadcast_grads(self._scone_params(opt), owner)
+            opt.step()
+            n += 1
+
+    def end_scone_replay(self):
+        """Tell the ranks following this one's SCONE replay that it ended."""
+        mesh.broadcast_(torch.zeros(1, device=distributed.device()),
+                        mesh.rank())
 
     def parallel_scone_train_step(self, opt, group: List[SceneSupervision],
                                   n_cells_active: Optional[int] = None,
                                   gen=None, cell_noise=None,
                                   sample_idx=None):
         """One SCONE optimizer step on the mean of a scene group's losses
-        (``parallel.scene_dp.group_scone_step``), counted as one step of
-        the warm-up schedule. Returns (loss, occ_loss, cov_loss), each the
-        group's mean."""
+        (``parallel.scene_dp.group_scone_step``; over data-parallel ranks
+        ``group`` is this rank's scenes of the group), counted as one step
+        of the warm-up schedule. ``gen`` is a generator or one per scene.
+        Returns (loss, occ_loss, cov_loss), each the group's mean."""
         self._next_scone_lr(opt)
         if n_cells_active is None:
             n_cells_active = self.occ_curriculum_max_cells
@@ -845,9 +896,11 @@ class HostEpisodes:
         return float(value)
 
     def start(self, rt, scenes, memory, memory_paths, gen, rs, n_poses):
-        """Every scene's start drawn from ``rs`` before any is primed."""
+        """Every scene's start drawn (from its own ``rs``, else the
+        caller's) before any is primed."""
         starts = [s.camera.get_random_valid_pose(
-            rs, s.verts_dev, proxy_points=s.proxy.points) for s in scenes]
+            own_rs(s, rs), s.verts_dev,
+            proxy_points=s.proxy.points) for s in scenes]
         for scene, mp, start in zip(scenes, memory_paths, starts):
             start_trajectory(rt, scene, memory, mp, rs, start_idx=start)
 
@@ -885,10 +938,11 @@ class DeviceEpisodes:
         return value
 
     def start(self, rt, scenes, memory, memory_paths, gen, rs, n_poses):
-        """Scene by scene, each start drawn from ``gen`` and primed on the
-        card."""
+        """Scene by scene, each start drawn (from the scene's own
+        generator, else ``gen``) and primed on the card."""
         for scene, mp in zip(scenes, memory_paths):
-            start_trajectory_device(rt, scene, memory, mp, gen, n_poses + 1)
+            start_trajectory_device(rt, scene, memory, mp,
+                                    own_gen(scene, gen), n_poses + 1)
 
     def decide(self, rt, scene, gen, warmup_phase):
         """(next pose index on the card, scene field, prediction camera)."""
@@ -910,6 +964,17 @@ HOST_EPISODES = HostEpisodes()
 DEVICE_EPISODES = DeviceEpisodes()
 
 
+def own_gen(scene, gen: torch.Generator) -> torch.Generator:
+    """The torch generator of a scene's own draws: its own if
+    ``run_training`` gave it one, else the caller's ``gen``."""
+    return getattr(scene, "gen", None) or gen
+
+
+def own_rs(scene, rs: np.random.Generator) -> np.random.Generator:
+    """The numpy generator of a scene's own draws, as ``own_gen``."""
+    return getattr(scene, "rs", None) or rs
+
+
 def nbv_parallel_step(rt: MacaronsRuntime, scenes: List[SceneState],
                       memory: Memory, memory_paths: List[str], opts: Dict,
                       gen: torch.Generator, freeze_scone: bool = False,
@@ -926,6 +991,10 @@ def nbv_parallel_step(rt: MacaronsRuntime, scenes: List[SceneState],
     its own scene's frames and concatenated in scene order (BatchNorm takes
     its statistics over the whole batch); each scene's supervision signal
     on its slice; and one SCONE step on the mean of the scenes' losses.
+    A scene's decision, capture and supervision draw from its own streams
+    (``own_gen``); the depth step's augmentation from ``gen``. Over
+    data-parallel ranks ``scenes`` are this rank's block of the group:
+    the depth and SCONE steps are the group's, and so are the losses.
     ``on_phase(pose_i, name)`` is called before "decision/<s>" and
     "capture/<s>" of scene s, "depth_step", "supervision" and
     "scone_step"; a group of one calls them "decision", "capture",
@@ -943,8 +1012,8 @@ def nbv_parallel_step(rt: MacaronsRuntime, scenes: List[SceneState],
     for s, (scene, mp) in enumerate(zip(scenes, memory_paths)):
         rt.bind_scene(scene.cfg, scene.cell_table)
         _phase(on_phase, pose_i, tag("decision", s))
-        next_idx, fld, pred_cam = episodes.decide(rt, scene, gen,
-                                                  warmup_phase)
+        next_idx, fld, pred_cam = episodes.decide(
+            rt, scene, own_gen(scene, gen), warmup_phase)
         fields.append(fld)
         pred_cams.append(pred_cam)
         _phase(on_phase, pose_i, tag("capture", s))
@@ -962,7 +1031,7 @@ def nbv_parallel_step(rt: MacaronsRuntime, scenes: List[SceneState],
         sl = slice(s * F, (s + 1) * F)
         sup = supervision_signal(
             rt, scene, depth[sl], mask[sl], err_mask[sl], batch["R"][sl],
-            batch["T"][sl], gen,
+            batch["T"][sl], own_gen(scene, gen),
             surface_distances[s] if surface_distances
             else 3.0 * scene.proxy_distance,
             vs_distance=3.0 * scene.proxy_distance,
@@ -977,7 +1046,8 @@ def nbv_parallel_step(rt: MacaronsRuntime, scenes: List[SceneState],
     occ_loss = cov_loss = zero
     if online_learning and not freeze_scone:
         _, occ_loss, cov_loss = rt.parallel_scone_train_step(
-            opts["scone"], group, n_cells_active=n_cells_active, gen=gen)
+            opts["scone"], group, n_cells_active=n_cells_active,
+            gen=[own_gen(s, gen) for s in scenes])
     return {"depth": depth_loss_v, "occ": occ_loss, "cov": cov_loss}
 
 
@@ -988,7 +1058,10 @@ def memory_depth_loop(rt: MacaronsRuntime, memory: Memory, opts: Dict,
     scene memory and every past trajectory, each with its alpha context,
     trained as one batch in one step. A group of ``scale`` scenes draws
     ``scale`` times the frames, as the reference's one replay batch per
-    rank. Returns the loss, or None when nothing is replayable."""
+    rank. Over data-parallel ranks every rank draws the same frames from
+    ``rs`` and reads and trains its contiguous share of them, in one depth
+    step of the whole batch. Returns the loss, or None when nothing is
+    replayable."""
     n_samples = rt.params.get("n_memory_samples", 4) * max(scale, 1)
     n_context = rt.dcfg.n_alpha + 1 + (
         1 if rt.dcfg.use_future_frame_for_supervision else 0)
@@ -996,6 +1069,7 @@ def memory_depth_loop(rt: MacaronsRuntime, memory: Memory, opts: Dict,
         rs, n_samples, n_context, exclude_traj=memory.current_trajectory())
     if got is None:
         return None
+    got = mesh.shard_batch(list(got))
     bs, als = [], []
     for path, traj, last in got:
         b, a = create_batch_for_depth_model(
@@ -1162,10 +1236,23 @@ def run_trajectories_parallel(rt: MacaronsRuntime, scenes: List[SceneState],
     entry per group pose); each ``scene.coverages`` gets its pose's
     coverage. Unless ``episodes.read_per_pose`` these stay tensors on the
     card (the epoch reads them after its flush) and ``verbose`` prints
-    nothing per pose; else they are floats."""
+    nothing per pose; else they are floats.
+
+    Over data-parallel ranks ``scenes`` are this rank's contiguous block
+    of the group (each rank the same number): each rank decides, moves,
+    captures, remaps and writes the memory of its own scenes; the depth
+    and SCONE steps are the group's; depth replay draws the group's
+    frames from ``rs`` on every rank and trains each rank's share; SCONE
+    replay goes scene by scene in group order, the owner's gradient
+    broadcast and every rank stepping (``replay_scone_group``). Each
+    rank's queued memory writes land, and the ranks meet, before the
+    group's first replay."""
     params = rt.params
     S = len(scenes)
     episodes = episodes or HOST_EPISODES
+    if mesh.world() > 1 and n_memory_loops > 0:
+        memory.flush()
+        distributed.barrier()
     episodes.start(rt, scenes, memory, memory_paths, gen, rs, n_poses)
     curr_dists = [R.curriculum_sampling_distances(
         max(n_poses, 2), s.proxy_distance, s.cfg.cell_size) for s in scenes]
@@ -1180,8 +1267,8 @@ def run_trajectories_parallel(rt: MacaronsRuntime, scenes: List[SceneState],
             for scene in scenes:
                 pts, valid = G.all_points(scene.surface_scene)
                 scene.surface_scene = G.fill_cells_progressive(
-                    scene.cfg, G.empty_grid(scene.cfg, rt.device), gen, pts,
-                    valid)
+                    scene.cfg, G.empty_grid(scene.cfg, rt.device),
+                    own_gen(scene, gen), pts, valid)
         step = nbv_parallel_step(
             rt, scenes, memory, memory_paths, opts, gen,
             freeze_scone=freeze_scone, warmup_phase=warmup_phase,
@@ -1194,20 +1281,17 @@ def run_trajectories_parallel(rt: MacaronsRuntime, scenes: List[SceneState],
 
         _phase(on_phase, pose_i, "depth_replay")
         for _ in range(n_memory_loops):
-            memory_depth_loop(rt, memory, opts, gen, rs, scale=S)
+            memory_depth_loop(rt, memory, opts, gen, rs,
+                              scale=S * mesh.world())
         _phase(on_phase, pose_i, "scone_replay")
         if online_learning and not freeze_scone \
                 and params.get("n_memory_scene_loops", 0) > 0:
-            for scene, mp in zip(scenes, memory_paths):
-                rt.bind_scene(scene.cfg, scene.cell_table)
-                memory_scone_loop(
-                    rt, scene, memory, mp, opts, gen, rs,
-                    n_loops=params.get("n_memory_scene_loops", 0),
-                    n_replay_frames=rt.n_interpolation_steps)
+            replay_scone_group(rt, scenes, memory, memory_paths, opts, gen,
+                               rs)
         _phase(on_phase, pose_i, "remap")
         if remap_at is not None and pose_i == remap_at:
             for scene, mp in zip(scenes, memory_paths):
-                recompute_mapping(rt, scene, memory, mp, gen)
+                recompute_mapping(rt, scene, memory, mp, own_gen(scene, gen))
         for scene in scenes:
             cov, _ = G.scene_coverage(scene.cfg, scene.gt_scene,
                                       scene.surface_scene)
@@ -1223,6 +1307,35 @@ def run_trajectories_parallel(rt: MacaronsRuntime, scenes: List[SceneState],
         memory.save_occupancy_field(mp, scene.proxy)
         episodes.save_poses(scene, memory, mp)
     return {k: [episodes.read(v) for v in vs] for k, vs in losses.items()}
+
+
+def replay_scone_group(rt: MacaronsRuntime, scenes: List[SceneState],
+                       memory: Memory, memory_paths: List[str], opts: Dict,
+                       gen: torch.Generator, rs: np.random.Generator):
+    """SCONE replay scene by scene in group order (``memory_scone_loop``,
+    each scene drawing from its own streams). Over data-parallel ranks the
+    group's scenes go rank by rank: the owner of a scene computes each
+    step's gradient and broadcasts it, and every rank takes the step, so
+    the weights stay equal."""
+    params = rt.params
+    kw = dict(n_loops=params.get("n_memory_scene_loops", 0),
+              n_replay_frames=rt.n_interpolation_steps)
+    for owner in range(mesh.world()):
+        if owner != mesh.rank():
+            for _ in scenes:
+                rt.follow_scone_steps(opts["scone"], owner)
+            continue
+        for scene, mp in zip(scenes, memory_paths):
+            rt.bind_scene(scene.cfg, scene.cell_table)
+            rt.scone_owner = owner if mesh.world() > 1 else None
+            try:
+                memory_scone_loop(rt, scene, memory, mp, opts,
+                                  own_gen(scene, gen), own_rs(scene, rs),
+                                  **kw)
+            finally:
+                rt.scone_owner = None
+            if mesh.world() > 1:
+                rt.end_scone_replay()
 
 
 def run_trajectory(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
@@ -1246,26 +1359,87 @@ def seeded_generator(device, *seeds) -> torch.Generator:
 
 
 def scene_group_size(params: Params) -> int:
-    """``n_parallel_scenes``, the number of scenes trained at once. The
-    whole group runs on the one card: a pinned ``n_devices`` that does not
-    divide the group raises, as in the JAX package, and so does one above
-    1, since the multi-card modules are not ported."""
+    """``n_parallel_scenes``, the number of scenes trained at once. A
+    pinned ``n_devices`` that does not divide the group raises, as in the
+    JAX package."""
     group = params.get("n_parallel_scenes", 1) or 1
     pinned = params.get("n_devices")
-    if group > 1 and pinned:
-        if group % pinned != 0:
-            raise ValueError(
-                f"n_parallel_scenes={group} does not divide over the "
-                f"pinned n_devices={pinned}; the scene axis must shard "
-                f"evenly")
-        if pinned > 1:
-            raise ValueError(
-                f"n_parallel_scenes={group} over n_devices={pinned}: a "
-                f"scene group spread over several cards (the JAX "
-                f"package's parallel/mesh.py, parallel/distributed.py and "
-                f"scene_dp.shard_scene_axis) is not ported; leave "
-                f"n_devices unset or 1 to run the group on one card")
+    if group > 1 and pinned and group % pinned != 0:
+        raise ValueError(
+            f"n_parallel_scenes={group} does not divide over the "
+            f"pinned n_devices={pinned}; the scene axis must shard "
+            f"evenly")
     return group
+
+
+def group_ranks(params: Params, n_cards: int) -> int:
+    """The ranks (one per card) a run's scene groups spread over, as the
+    JAX package sizes its mesh: the pinned ``n_devices``, else the largest
+    divisor of the group within ``n_cards``; 1 for one scene at a time."""
+    group = scene_group_size(params)
+    if group == 1:
+        return 1
+    pinned = params.get("n_devices")
+    if pinned:
+        return int(pinned)
+    return max(d for d in range(1, min(group, n_cards) + 1)
+               if group % d == 0)
+
+
+def check_group_ranks(params: Params, world: int, n_scenes: int):
+    """Raise unless an epoch's scene groups (``n_scenes`` scenes) divide
+    over ``world`` data-parallel ranks (a pinned ``n_devices`` must be the
+    world) and the replay memory is the disk one: ``DeviceMemory`` keeps
+    one process's stores, and a replay of them across ranks is not ported.
+    A trailing group of one scene runs on rank 0 alone; a larger one must
+    split over the ranks too, as the JAX package's mesh must shard it."""
+    if world == 1:
+        return
+    group = scene_group_size(params)
+    pinned = params.get("n_devices")
+    if group % world != 0:
+        raise ValueError(
+            f"n_parallel_scenes={group} does not divide over the {world} "
+            f"ranks; launch group_ranks(params, cards) ranks")
+    trailing = n_scenes % group
+    if trailing > 1 and trailing % world != 0:
+        raise ValueError(
+            f"an epoch of {n_scenes} scenes ends in a group of {trailing}, "
+            f"which does not divide over the {world} ranks; train a number "
+            f"of scenes (max_scenes_per_epoch) whose last group has one "
+            f"scene or a multiple of {world}")
+    if pinned and pinned != world:
+        raise ValueError(f"n_devices={pinned} is pinned but {world} ranks "
+                         f"run")
+    if params.get("device_memory", True):
+        raise ValueError(
+            f"a scene group over {world} ranks needs the disk replay "
+            f'memory: set "device_memory": false (the device memory '
+            f"across ranks is a later slice of the port)")
+
+
+def sync_training_state(rt: "MacaronsRuntime", opts: Dict, src: int,
+                        extra=None):
+    """Rank ``src``'s networks, optimizer states, step counters and
+    ``extra`` (any picklable value) on every rank; returns ``extra``."""
+    model = rt.model
+    state = None
+    if mesh.rank() == src:
+        state = {"nets": {k: getattr(model, k).state_dict()
+                          for k in ("depth", "occ", "vis")
+                          if getattr(model, k) is not None},
+                 "opts": {k: v.state_dict() for k, v in opts.items()
+                          if v is not None},
+                 "steps": (rt.depth_opt_steps, rt.scone_opt_steps),
+                 "extra": extra}
+    state = mesh.broadcast_object(state, src)
+    if mesh.rank() != src:
+        for k, sd in state["nets"].items():
+            getattr(model, k).load_state_dict(sd)
+        for k, sd in state["opts"].items():
+            opts[k].load_state_dict(sd)
+        rt.depth_opt_steps, rt.scone_opt_steps = state["steps"]
+    return state["extra"]
 
 
 # The card's bytes a training pose takes beside the models and the device
@@ -1320,14 +1494,30 @@ def run_training(params: Params, data_path: Optional[str] = None,
     raises at once (``check_device_memory_fits``). Validation always uses a
     disk ``Memory``. ``on_phase``, if given, is
     handed to every training trajectory (see run_trajectory) as
-    ``on_phase(epoch, pose_i, name)``. Returns (model, per-epoch mean
-    losses)."""
+    ``on_phase(epoch, pose_i, name)``. Each scene of an epoch draws its
+    set-up and trajectory from streams of its own, seeded by (torch_seed,
+    epoch, index) and (random_seed, epoch, index).
+
+    In a group of W data-parallel ranks (``parallel.distributed``; the
+    ``train`` CLI starts them) each scene group splits into W contiguous
+    blocks, one per rank (``check_group_ranks``): every rank draws the
+    epoch's order and mirroring, sets up and trains its own block, and
+    the steps are the group's (``run_trajectories_parallel``); a trailing
+    group of one scene runs on rank 0 alone and its state goes to every
+    rank. Rank 0 validates and writes the checkpoints, and every rank reads
+    them. While rank 0 works alone, the others wait in
+    ``distributed.await_lone_work``, which the group's timeout does not
+    bound. Returns (model, per-epoch mean losses)."""
     dev = resolve_device(device)
     data_path = data_path or params.data_path
     group = scene_group_size(params)
+    world = mesh.world()
+    dataset = SceneDataset(data_path)
+    check_group_ranks(params, world, min(len(dataset), max_scenes_per_epoch
+                                         or len(dataset)))
+    verbose = verbose and distributed.is_master()
     seed = params.get("random_seed", 42)
     torch_seed = params.get("torch_seed", 5)
-    dataset = SceneDataset(data_path)
     model = create_macarons_model(params, dev)
     init_macarons_weights(model, seeded_generator(dev, torch_seed))
     if params.get("vis_init_path"):
@@ -1383,6 +1573,9 @@ def run_training(params: Params, data_path: Optional[str] = None,
     else:
         raise FileNotFoundError(
             f"start_from_scratch is false but no checkpoint at {resume_path}")
+    for net in (model.depth, model.occ, model.vis):
+        if net is not None:
+            mesh.broadcast_module(net)
     begin_frozen = n_freeze > 0 and start_epoch < n_freeze
     best_val_coverage = -1.0
 
@@ -1445,38 +1638,69 @@ def run_training(params: Params, data_path: Optional[str] = None,
         hook = (None if on_phase is None else
                 lambda pose_i, phase, e=epoch: on_phase(e, pose_i, phase))
 
-        def make_scene(si):
-            item = dataset[int(si)]
+        def mirroring():
             sym_p = params.get("symmetry_probability", 0.5)
-            mirrored = ([a for a in params.get("axis_to_mirror", [0, 1])
-                         if rs.random() < sym_p]
-                        if params.get("random_mirror_scenes", True) else None)
-            scene = setup_scene(params, item, seeded_generator(dev, torch_seed,
-                                                         epoch, si),
-                                dev, mirrored_axes=mirrored)
+            return ([a for a in params.get("axis_to_mirror", [0, 1])
+                     if rs.random() < sym_p]
+                    if params.get("random_mirror_scenes", True) else None)
+
+        def make_scene(si, mirrored):
+            item = dataset[int(si)]
+            scene_gen = seeded_generator(dev, torch_seed, epoch, si)
+            scene = setup_scene(params, item, scene_gen, dev,
+                                mirrored_axes=mirrored)
+            # The trajectory continues the set-up's generator.
+            scene.gen = scene_gen
+            scene.rs = np.random.default_rng([seed, epoch, int(si)])
             return scene, os.path.join(mem_root, item["scene_name"], mem_dir)
 
         for g0 in range(0, len(scene_indices), group):
-            # Every scene of a group is set up (its mirroring drawn from
-            # rs) before any trajectory; a trailing group of one runs alone.
-            scenes, mps = zip(*[make_scene(si) for si in
-                                scene_indices[g0:g0 + group]])
+            # Every scene of a group has its mirroring drawn from rs, on
+            # every rank, before any is set up; a rank sets up its own
+            # block of the group, and a trailing group of one scene runs
+            # on rank 0 alone (check_group_ranks).
+            members = [(si, mirroring()) for si in
+                       scene_indices[g0:g0 + group]]
+            alone = world > 1 and len(members) % world != 0
+            if alone:
+                mine = members if distributed.is_master() else []
+            else:
+                n_own = len(members) // world
+                mine = members[mesh.rank() * n_own:(mesh.rank() + 1) * n_own]
             kw = dict(freeze_scone=freeze_scone, warmup_phase=warmup,
                       on_phase=hook, **common)
-            if len(scenes) > 1:
-                traj = run_trajectories_parallel(
-                    rt, list(scenes), memory, list(mps), opts, gen, rs,
-                    n_poses, **kw)
-            else:
-                traj = run_trajectory(rt, scenes[0], memory, mps[0], opts,
-                                      gen, rs, n_poses=n_poses, **kw)
+            traj = None
+            if mine:
+                scenes, mps = zip(*[make_scene(si, m) for si, m in mine])
+                with (distributed.local() if alone
+                      else contextlib.nullcontext()):
+                    if len(members) > 1:
+                        traj = run_trajectories_parallel(
+                            rt, list(scenes), memory, list(mps), opts, gen,
+                            rs, n_poses, **kw)
+                    else:
+                        traj = run_trajectory(rt, scenes[0], memory, mps[0],
+                                              opts, gen, rs, n_poses=n_poses,
+                                              **kw)
+                    if alone:
+                        # The other ranks wait for these losses as floats.
+                        memory.flush()
+                        traj = {k: [float(v) for v in vs]
+                                for k, vs in traj.items()}
+            if alone:
+                distributed.await_lone_work()
+                traj, rs_state, gen_state = sync_training_state(
+                    rt, opts, 0, (traj, rs.bit_generator.state,
+                                  gen.get_state().cpu()))
+                rs.bit_generator.state = rs_state
+                gen.set_state(gen_state)
             for k in epoch_losses:
                 epoch_losses[k] += traj[k]
-            if verbose and episodes.read_per_pose:
+            if verbose and mine and episodes.read_per_pose:
                 covs = ", ".join(f"{s.name} {s.coverages[-1]:.4f}"
                                  for s in scenes)
                 print(f"epoch {epoch}: final coverage {covs}")
-            elif verbose:
+            elif verbose and mine:
                 print(f"epoch {epoch}: {[s.name for s in scenes]} done (the "
                       f"losses are read at the end of the epoch)")
 
@@ -1486,6 +1710,8 @@ def run_training(params: Params, data_path: Optional[str] = None,
             dmem.flush_to_disk()
         else:
             memory.flush()
+        # Every rank's files are written before any rank reads them.
+        distributed.barrier()
         epoch_losses = {k: [float(v) for v in vs]
                         for k, vs in epoch_losses.items()}
         mean_depth = (float(np.mean(epoch_losses["depth"]))
@@ -1494,38 +1720,49 @@ def run_training(params: Params, data_path: Optional[str] = None,
                                  for k, v in epoch_losses.items()})
         depth_losses_per_epoch.append(mean_depth)
 
+        def validate(names):
+            """Rank 0's validation run (no collectives): the mean of each
+            validation scene's final coverage, or None."""
+            covs = []
+            with distributed.local():
+                for vname in names:
+                    if vname not in dataset.scene_names:
+                        continue
+                    item = dataset[dataset.scene_names.index(vname)]
+                    vscene = setup_scene(params, item, gen, dev)
+                    vpath = os.path.join(mem_root, vname,
+                                         "macarons_memory_val")
+                    run_trajectory(rt, vscene,
+                                   Memory([vpath], current_epoch=epoch),
+                                   vpath, opts, gen, rs,
+                                   n_poses=params.get("n_val_poses", 10),
+                                   online_learning=False)
+                    covs.append(vscene.coverages[-1])
+            return float(np.mean(covs)) if covs else None
+
         val_coverage = None
         val_scenes = params.get("val_scenes")
         if (val_scenes and params.get("validate_every_n_epochs", 0) > 0
                 and (epoch + 1) % params["validate_every_n_epochs"] == 0):
-            covs = []
-            for vname in val_scenes:
-                if vname not in dataset.scene_names:
-                    continue
-                item = dataset[dataset.scene_names.index(vname)]
-                vscene = setup_scene(params, item, gen, dev)
-                vpath = os.path.join(mem_root, vname, "macarons_memory_val")
-                run_trajectory(rt, vscene,
-                               Memory([vpath], current_epoch=epoch), vpath,
-                               opts, gen, rs,
-                               n_poses=params.get("n_val_poses", 10),
-                               online_learning=False)
-                covs.append(vscene.coverages[-1])
-            if covs:
-                val_coverage = float(np.mean(covs))
-                if verbose:
-                    print(f"epoch {epoch}: val coverage {val_coverage:.4f}")
+            val_coverage = validate(val_scenes) if distributed.is_master() \
+                else None
+            distributed.await_lone_work()
+            val_coverage = mesh.broadcast_object(val_coverage, 0)
+            if val_coverage is not None and verbose:
+                print(f"epoch {epoch}: val coverage {val_coverage:.4f}")
 
         meta = {"epoch": epoch + 1, "depth_losses": depth_losses_per_epoch,
                 "train_losses": all_train_losses, "best_loss": best_loss,
                 "val_coverage": val_coverage,
                 "depth_opt_steps": rt.depth_opt_steps,
                 "scone_opt_steps": rt.scone_opt_steps}
-        os.makedirs(weights_dir, exist_ok=True)
-        with open(os.path.join(weights_dir, f"losses_data_{name}.json"),
-                  "w") as f:
-            json.dump({"train_losses": all_train_losses,
-                       "depth_losses": depth_losses_per_epoch}, f, indent=2)
+        if distributed.is_master():
+            os.makedirs(weights_dir, exist_ok=True)
+            with open(os.path.join(weights_dir, f"losses_data_{name}.json"),
+                      "w") as f:
+                json.dump({"train_losses": all_train_losses,
+                           "depth_losses": depth_losses_per_epoch}, f,
+                          indent=2)
         # The rolling resume point keeps the optimizers; the other flavours
         # are weights only.
         save_macarons(os.path.join(weights_dir, f"unvalidated_{name}"),

@@ -2,7 +2,8 @@
 holds the network's state dict and, for the rolling resume point, the
 optimizer's and the step count; ``<path>.json`` the JAX package's
 metadata. A JAX pretrainer checkpoint ``<path>.msgpack`` (a Flax
-``TrainState``) gives the weights only, through utils.convert."""
+``TrainState``) gives the weights only, through utils.convert. Across
+data-parallel ranks, rank 0 writes and every rank reads."""
 
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ from typing import Dict, Optional
 
 import torch
 
+from ..parallel import distributed
+
 
 def checkpoint_exists(path: str) -> bool:
     return os.path.exists(path + ".pt") or os.path.exists(path + ".msgpack")
@@ -20,14 +23,18 @@ def checkpoint_exists(path: str) -> bool:
 def save_checkpoint(path: str, module: torch.nn.Module, metadata=None,
                     opt: Optional[torch.optim.Optimizer] = None,
                     step: Optional[int] = None):
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tree = {"model": module.state_dict()}
-    if opt is not None:
-        tree.update(opt=opt.state_dict(), step=step)
-    torch.save(tree, path + ".pt")
-    if metadata is not None:
-        with open(path + ".json", "w") as f:
-            json.dump(metadata, f, indent=2, default=float)
+    """Rank 0 writes (every rank holds the same state), then every rank
+    waits for it, so a read that follows finds the files."""
+    if distributed.is_master():
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tree = {"model": module.state_dict()}
+        if opt is not None:
+            tree.update(opt=opt.state_dict(), step=step)
+        torch.save(tree, path + ".pt")
+        if metadata is not None:
+            with open(path + ".json", "w") as f:
+                json.dump(metadata, f, indent=2, default=float)
+    distributed.barrier()
 
 
 def load_checkpoint(path: str, module: torch.nn.Module,

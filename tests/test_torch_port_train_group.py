@@ -535,8 +535,12 @@ def test_group_epoch_loop(cube_root, tmp_path):
 
 def test_n_devices(cube_root, tmp_path):
     """A pinned n_devices that does not divide the group raises the JAX
-    package's ValueError before any scene is set up; one above 1 raises
-    too, since the group runs on one card; 1 is the card."""
+    package's ValueError before any scene is set up; one that divides it
+    runs, over as many ranks (``group_ranks``: the pinned count, else the
+    largest divisor of the group within the cards, as the JAX package
+    sizes its mesh); a group over several ranks, and an epoch's trailing
+    group of more than one scene, must split over them, and the run must
+    take the disk memory (``check_group_ranks``)."""
     mp = pytest.MonkeyPatch()
     try:
         mp.setattr(JTM, "init_macarons_variables",
@@ -554,8 +558,29 @@ def test_n_devices(cube_root, tmp_path):
                         verbose=False)
     assert str(err.value) == str(jerr.value)
     assert "n_parallel_scenes" in str(err.value)
-    with pytest.raises(ValueError, match="mesh.py"):
-        TM.scene_group_size(Params(dict(GROUP_RUN, n_devices=2)))
+    pinned = Params(dict(GROUP_RUN, n_devices=2))
+    assert TM.scene_group_size(pinned) == 2
+    assert TM.group_ranks(pinned, 1) == TM.group_ranks(pinned, 8) == 2
+    TM.check_group_ranks(pinned, 2, 4)
+    with pytest.raises(ValueError, match="n_devices=1 is pinned but 2 ranks"):
+        TM.check_group_ranks(Params(dict(GROUP_RUN, n_devices=1)), 2, 4)
+    with pytest.raises(ValueError, match="does not divide over the 3"):
+        TM.check_group_ranks(Params(dict(GROUP_RUN, n_devices=None)), 3, 4)
+    with pytest.raises(ValueError, match='"device_memory": false'):
+        TM.check_group_ranks(Params(dict(pinned.to_dict(),
+                                         device_memory=True)), 2, 4)
+    four = Params(dict(GROUP_RUN, n_parallel_scenes=4, n_devices=None))
+    # An epoch's trailing group: one scene runs on rank 0 alone, a larger
+    # one must split over the ranks (the JAX package's mesh cannot shard a
+    # trailing group of 3 over 2 devices either).
+    for n_scenes in (4, 5, 6, 8, 9, 10):
+        TM.check_group_ranks(four, 2, n_scenes)
+    for world, n_scenes in ((2, 3), (2, 7), (4, 6), (4, 7)):
+        with pytest.raises(ValueError, match="ends in a group of"):
+            TM.check_group_ranks(four, world, n_scenes)
+    assert [TM.group_ranks(four, n) for n in (1, 2, 3, 4, 8)] == [
+        1, 2, 2, 4, 4]
+    assert TM.group_ranks(Params(dict(TINY)), 8) == 1
     assert TM.scene_group_size(Params(dict(GROUP_RUN, n_devices=1))) == 2
     assert TM.scene_group_size(Params(dict(GROUP_RUN, n_devices=None))) == 2
     assert TM.scene_group_size(Params(dict(TINY, n_devices=3))) == 1

@@ -19,8 +19,10 @@ import numpy as np
 import pytest
 import torch
 
+from macarons_tpu.models.losses import uncentered_l1 as juncentered_l1
 from macarons_tpu.scene.memory import Memory as JMemory
 from macarons_tpu_torch.config import Params
+from macarons_tpu_torch.models import losses as L
 from macarons_tpu_torch.scene.grid import GridState
 from macarons_tpu_torch.scene.memory import Memory
 from macarons_tpu_torch.scene.proxy import ProxyState
@@ -134,18 +136,45 @@ def test_memory_shared_with_jax(tmp_path, writer):
         tree_equal(ours, ref)
 
 
-def test_run_training_and_resume(tmp_path_factory):
+def test_run_training_and_resume(tmp_path_factory, monkeypatch):
     root = make_scene_root(tmp_path_factory)
     out = tmp_path_factory.mktemp("train")
     wdir, mroot = str(out / "w"), str(out / "mem")
     phases = []
+    windows = []
+    uncentered_l1 = L.uncentered_l1
+
+    def recording_l1(pred, truth):
+        """The coverage loss, with each window's gains kept."""
+        loss = uncentered_l1(pred, truth)
+        windows.append((pred.detach().numpy().copy(), truth.numpy().copy(),
+                        float(loss.detach())))
+        return loss
+
+    monkeypatch.setattr(L, "uncentered_l1", recording_l1)
     model, losses = TM.run_training(
         Params(dict(TRAIN, data_path=root)), weights_dir=wdir,
         memory_root=mroot, device="cpu", verbose=False)
     assert len(losses) == 1
     for k in ("depth", "occ", "cov"):
         assert np.isfinite(losses[0][k])
-    assert losses[0]["depth"] > 0 and losses[0]["cov"] > 0
+    assert losses[0]["depth"] > 0
+    # Each online SCONE step's coverage loss is the JAX package's uncentered
+    # L1 of the window's predicted and supervision gains, and the epoch's is
+    # their mean. It is 0 exactly where the two mean-normalised gain vectors
+    # agree: a window's first frame arrives covered (gain 0, predicted 0),
+    # so in a two-frame window any positive prediction for the second frame
+    # is exact. It is positive wherever they differ.
+    assert len(windows) == TRAIN["n_poses_in_trajectory"]
+    differ = []
+    for pred, truth, loss in windows:
+        assert truth.sum() > 0 and pred.sum() > 0
+        ref = float(juncentered_l1(pred, truth))
+        np.testing.assert_allclose(loss, ref, rtol=1e-5, atol=1e-7)
+        differ.append(ref > 1e-6)
+    np.testing.assert_allclose(losses[0]["cov"],
+                               np.mean([w[2] for w in windows]), rtol=1e-6)
+    assert (losses[0]["cov"] > 0) == any(differ)
     for f in ("unvalidated_test_mac.pt", "unvalidated_test_mac.json",
               "epoch_0_test_mac.pt", "best_unval_test_mac.pt",
               "losses_data_test_mac.json"):
