@@ -124,8 +124,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      resumed epoch with one depth and one SCONE replay loop, the disk
      memory), the replicas compared bit for bit after every optimizer
      step; the last group SCONE step held against one process's on the
-     same saved inputs; each rank's launches printed with the backend and
-     the world, and added to the kernel table;
+     same saved inputs; then the same group with the device memory over
+     fresh ranks (perfect depth, 1 pose, epochs 0 and 1 in one run, a
+     resumed epoch 2): every rank's memory equal after each epoch's
+     exchange (checksums of every store), a SCONE replay in epoch 1 of a
+     slot another rank captured, the networks equal on every rank after
+     every step and to the same run in one process (bit for bit, and then
+     the memories too, else within STEP_REL with the first differing step
+     named); each rank's launches printed with the
+     backend and the world, and its rows (B1 + B2, B3 at the decision's
+     and the SCONE step's shapes, B3's backward) added to the kernel
+     table;
  12. print the kernel table (JSON), the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
 Each trajectory prints its pose sequence and coverages. A saved SCONE step
@@ -4232,6 +4241,10 @@ DP_BATCH = 3
 DP_STEPS = 2
 DP_POSES = 3
 DP_REMAP = 1
+# The device-memory group's poses per epoch (3 epochs to the disk one's 2)
+# and its remap, whose 5 depths feed a SCONE replay loop of 4.
+DP_DEVICE_POSES = 1
+DP_DEVICE_REMAP = 0
 DP_TIMEOUT = 420.0
 # The phases of a rank's scene (one a rank) that follow an optimizer step:
 # the depth step, the group SCONE step, depth replay and SCONE replay.
@@ -4291,6 +4304,131 @@ def dp_group_params(cfg, epochs):
     return p
 
 
+@contextlib.contextmanager
+def made_by_run_training():
+    """Inside: the model and the optimizers that run_training makes, in
+    the returned dict ("model", "opts")."""
+    made = {}
+    create_model, create_opts = TM.create_macarons_model, TM.create_optimizers
+
+    def model_hook(params, dev):
+        made["model"] = create_model(params, dev)
+        return made["model"]
+
+    def opts_hook(params, model):
+        made["opts"] = create_opts(params, model)
+        return made["opts"]
+
+    TM.create_macarons_model, TM.create_optimizers = model_hook, opts_hook
+    try:
+        yield made
+    finally:
+        TM.create_macarons_model, TM.create_optimizers = create_model, \
+            create_opts
+
+
+def scene_slot(path, t):
+    """A memory key as "<scene>/<slot>" (the path's scene directory)."""
+    return f"{os.path.basename(os.path.dirname(path))}/{t}"
+
+
+def dp_device_memory_run(cfg, tag):
+    """run_training with the device memory at a scene group of one scene a
+    rank (the ranks', or the whole group in this process at world 1), perfect
+    depth, DP_DEVICE_POSES pose an epoch with a remap, one depth and
+    one SCONE replay loop: epochs 0 and 1 in one run (epoch 1 replays
+    the slots exchanged at epoch 0's end), then a resumed run of epoch
+    2. After every optimizer step (DP_AGREE_AT) the replicas must agree,
+    and each network's checksums are kept; after each epoch's exchange,
+    each memory key's checksums (``DeviceMemory.key_state``) and the
+    exchange's record. Launch counts from just before the first run to
+    just after the second. Returns the records, the losses, the networks
+    on the CPU, the counts and the recorded move."""
+    rank = mesh.rank()
+    steps, memories, exchanges, replays = [], {}, {}, []
+    exchange = TM.exchange_device_memory
+    sample = DeviceMemory.get_random_scene_for_scone
+
+    def exchanged(memory, owners, verbose=False):
+        out = exchange(memory, owners, verbose)
+        memories[memory.current_epoch] = {scene_slot(*key): [
+            mesh.checksum(v) for v in memory.key_state(key).values()]
+            for key in memory.keys()}
+        exchanges[memory.current_epoch] = dict(
+            out, loaded=[scene_slot(*k) for k in out["loaded"]],
+            store_bytes=memory.nbytes())
+        return out
+
+    def scone_replay(self, rs, scene_path, *args, **kw):
+        got = sample(self, rs, scene_path, *args, **kw)
+        if got is not None:
+            replays.append((self.current_epoch, scene_slot(scene_path,
+                                                           got[0])))
+        return got
+
+    with made_by_run_training() as made:
+        def nets():
+            m = made["model"]
+            return [n for n in (m.depth, m.occ, m.vis) if n is not None]
+
+        def on_phase(epoch, pose_i, name):
+            if name not in DP_AGREE_AT:
+                return
+            if not mesh.replicas_agree(*nets(), optimizers=[
+                    o for o in made["opts"].values() if o is not None]):
+                raise RuntimeError(f"rank {rank}: the replicas differ after "
+                                   f"epoch {epoch} pose {pose_i}'s {name} "
+                                   f"step (device memory)")
+            steps.append(((epoch, pose_i, name), [
+                mesh.checksum(v) for n in nets()
+                for v in n.state_dict().values()]))
+
+        torch.cuda.reset_peak_memory_stats()
+        wdir = os.path.join(cfg["work"], f"dm_weights_{tag}")
+        mroot = os.path.join(cfg["work"], f"dm_memory_{tag}")
+        # Perfect depth: over ranks the depth step's BatchNorm statistics
+        # and sums round otherwise than in one process, and AdamW lifts
+        # that rounding on near-zero gradients to the learning rate's
+        # scale (ManyDepth 3.0e-3 of its scale after 10 steps). The depth
+        # step over ranks is held by test_group_depth_step; here the
+        # memory's exchange is, and SCONE trains from what it replays.
+        params = dp_group_params(cfg, 2)
+        params.update(dict(device_memory=True, use_perfect_depth=True,
+                           n_poses_in_trajectory=DP_DEVICE_POSES,
+                           remap_every_n_poses=DP_DEVICE_REMAP))
+        TM.exchange_device_memory = exchanged
+        DeviceMemory.get_random_scene_for_scone = scone_replay
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            with recorded_moves(params.n_interpolation_steps) as moves:
+                for epochs in (2, 3):
+                    # Each rank's fit check counts its own cached bytes
+                    # but not those of a rank sharing the card: the first
+                    # run's cache goes before the resumed run's check.
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    params.update(dict(epochs=epochs,
+                                       start_from_scratch=epochs == 2))
+                    model, losses = run_training(
+                        params, weights_dir=wdir, memory_root=mroot,
+                        device="cuda", verbose=False, on_phase=on_phase)
+        finally:
+            TM.exchange_device_memory = exchange
+            DeviceMemory.get_random_scene_for_scone = sample
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    return {"steps": steps, "memories": memories, "exchanges": exchanges,
+            "replays": replays, "losses": losses, "counts": counts,
+            "seconds": seconds, "move": moves[0], "params": params,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "nets": {k: {n: v.cpu() for n, v in
+                         getattr(model, k).state_dict().items()}
+                     for k in ("depth", "occ", "vis")
+                     if getattr(model, k) is not None}}
+
+
 def dp_group_draws(members, first):
     """The injected draws of a held group SCONE step, scene by scene from
     a generator of the scene's place ``first + s`` in the group (as
@@ -4327,6 +4465,48 @@ def dp_group_step(params, nets, members, first):
             {"occ": grads_of(model.occ), "vis": grads_of(model.vis)})
 
 
+def dp_device_memory_rank(cfg):
+    """One rank of phase_data_parallel's device-memory group, in a process
+    of its own (so that nothing of the pretrainers and the disk group takes
+    the card's room: each rank that shares the card needs its stores and
+    DEVICE_MEMORY_HEADROOM_GIB free, ``check_device_memory_fits``):
+    ``dp_device_memory_run``, then this rank's rows at its own shapes, the
+    ranks one after another. Returns the records on the CPU."""
+    rank, world = mesh.rank(), mesh.world()
+    free, _ = torch.cuda.mem_get_info()
+    print(f"[data parallel] device memory, rank {rank}: the card has "
+          f"{free / 2**30:.2f} GiB free as the group starts", flush=True)
+    dm = dp_device_memory_run(cfg, "ranks")
+    params = dm.pop("params")
+    move = dm.pop("move")
+    step = (params.n_interpolation_steps, 1, params.seq_len)
+    decision = (DECISION_CANDIDATES, 1, params.seq_len)
+    tag = f"data parallel, device memory, rank {rank} of {world}"
+    counts = dm["counts"]
+    for turn in range(world):
+        if turn == rank:
+            gen = make_generator(torch.device("cuda"), SEED + 70 + rank)
+            backward = backward_times(gen, *step)
+            if not backward["max_abs_err"] <= BACKWARD_REL:
+                fail(f"rank {rank}: sh_visibility_backward {step} differs "
+                     f"from its plain version by "
+                     f"{backward['max_abs_err']} of max |grad|")
+            dm["rows"] = [
+                moved_row(counts, move, tag),
+                kernel_row(gen, launches_at(counts, decision), 0.0, decision,
+                           f"device decision, {tag}"),
+                kernel_row(gen, launches_at(counts, step), 0.0, step,
+                           f"SCONE step, {tag}"),
+                dict(backward, name=f"sh_visibility_backward (SCONE step, "
+                     f"{tag}, {'x'.join(map(str, step))})", route="cuda",
+                     source="macarons_tpu_torch/csrc/sh_visibility.cu",
+                     replaces="macarons_tpu/ops/pallas/sh_visibility.py:133",
+                     launches=counts["sh_visibility_backward_at"].get(
+                         step, 0), library_ms=None)]
+        distributed.barrier()
+    return dm
+
+
 def dp_rank(cfg):
     """One rank of phase_data_parallel: the two pretrainers at DP_BATCH
     items a rank, then run_training at a scene group of one scene a rank
@@ -4348,18 +4528,8 @@ def dp_rank(cfg):
                                net.state_dict().items()}}
     t1 = time.perf_counter()
 
-    made = {}
-    create_model, create_opts = TM.create_macarons_model, TM.create_optimizers
     step_fn = MacaronsRuntime.parallel_scone_train_step
     recorded = []
-
-    def model_hook(params, dev):
-        made["model"] = create_model(params, dev)
-        return made["model"]
-
-    def opts_hook(params, model):
-        made["opts"] = create_opts(params, model)
-        return made["opts"]
 
     def group_hook(rt, opt, members, **kw):
         recorded[:] = [(members, kw)]
@@ -4379,12 +4549,12 @@ def dp_rank(cfg):
                                    f"step")
 
     params = dp_group_params(cfg, 2)
-    TM.create_macarons_model, TM.create_optimizers = model_hook, opts_hook
     MacaronsRuntime.parallel_scone_train_step = group_hook
     try:
         wdir = os.path.join(cfg["work"], "dp_weights")
         mroot = os.path.join(cfg["work"], "dp_memory")
-        with recorded_moves(params.n_interpolation_steps) as moves:
+        with made_by_run_training() as made, \
+                recorded_moves(params.n_interpolation_steps) as moves:
             run_training(dp_group_params(cfg, 1), weights_dir=wdir,
                          memory_root=mroot, device="cuda", verbose=False,
                          on_phase=on_phase)
@@ -4392,8 +4562,6 @@ def dp_rank(cfg):
                                          memory_root=mroot, device="cuda",
                                          verbose=False, on_phase=on_phase)
     finally:
-        TM.create_macarons_model, TM.create_optimizers = create_model, \
-            create_opts
         MacaronsRuntime.parallel_scone_train_step = step_fn
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -4440,6 +4608,25 @@ def dp_rank(cfg):
     return out
 
 
+def dp_spawn(fn, cfg, backend, world):
+    """``fn(cfg)`` on ``world`` ranks (``distributed.spawn``), their results
+    in rank order. Ranks sharing a card grow their allocators' segments in
+    place (expandable segments): a cache fragmented into reserved but
+    unallocated blocks can take the room the other rank needs."""
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        return distributed.spawn(
+            fn, world, (cfg,), backend=backend, device="cuda",
+            timeout=DP_TIMEOUT, deadline=DP_TIMEOUT,
+            threads=max(1, (os.cpu_count() or 2) // world))
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+
+
 def phase_data_parallel(shapenet_root):
     """Data parallelism through the entry points on the card(s)
     (dp_layout: two gloo ranks on one card, or NCCL over up to 4 cards):
@@ -4452,9 +4639,13 @@ def phase_data_parallel(shapenet_root):
     with one depth and one SCONE replay loop, the disk memory; the ranks'
     replicas agreeing after every step; one group SCONE step from the
     trained weights held against the same step in one process on the
-    same saved inputs (the gradient within STEP_REL of max |g|). Fails
-    unless every rank launched rasterize_tiled and both B3 kernels.
-    Returns (backend, world, each rank's launch counts)."""
+    same saved inputs (the gradient within STEP_REL of max |g|); then the
+    same group with the device memory over fresh ranks
+    (``dp_device_memory_rank``: DP_DEVICE_POSES pose, epochs 0 and 1 in
+    one run, a resumed epoch 2) held by ``hold_device_memory_ranks`` and
+    against the same run in this process (``hold_device_memory_one``).
+    Fails unless every rank of either group launched rasterize_tiled and
+    both B3 kernels. Returns (backend, world, the ranks' kernel rows)."""
     backend, world = dp_layout()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4484,22 +4675,8 @@ def phase_data_parallel(shapenet_root):
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
               f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved) as "
               f"the ranks start", flush=True)
-        # Ranks sharing a card grow their allocators' segments in place:
-        # a cache fragmented into reserved but unallocated blocks can take
-        # the room the other rank needs.
-        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
         t0 = time.perf_counter()
-        try:
-            ranks = distributed.spawn(
-                dp_rank, world, (cfg,), backend=backend, device="cuda",
-                timeout=DP_TIMEOUT, deadline=DP_TIMEOUT,
-                threads=max(1, (os.cpu_count() or 2) // world))
-        finally:
-            if alloc is None:
-                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
-            else:
-                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        ranks = dp_spawn(dp_rank, cfg, backend, world)
         t_ranks = time.perf_counter() - t0
         by_shape = [{k: r["counts"][k + "_at"] for k in DP_KERNELS}
                     for r in ranks]
@@ -4584,6 +4761,19 @@ def phase_data_parallel(shapenet_root):
         if not (max(step_err.values()) <= STEP_REL and loss_rel <= 1e-5):
             fail(f"the group SCONE step over {world} ranks differs from one "
                  f"process's: {step_err}, losses apart by {loss_rel}")
+
+        # The device-memory group over fresh ranks: their memories and
+        # replays, then the same run in one process.
+        del members, held
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        dms = dp_spawn(dp_device_memory_rank, cfg, backend, world)
+        t_dm = time.perf_counter() - t0
+        hold_device_memory_ranks(dms, world)
+        one_dm = dp_device_memory_run(cfg, "one")
+        del one_dm["move"], one_dm["params"]
+        hold_device_memory_one(dms[0], one_dm, world)
     for r in ranks:
         print(f"[data parallel] rank {r['rank']}: pretraining "
               f"{r['seconds']['pretrain']:.2f} s, scene group "
@@ -4593,8 +4783,104 @@ def phase_data_parallel(shapenet_root):
               f"{r['group_losses']}", flush=True)
     print(f"[data parallel] {t_ranks:.2f} s for the ranks (spawn included), "
           f"{t_one:.2f} s for the one-process pretraining (peak "
-          f"{one_peak:.2f} GiB)", flush=True)
-    return backend, world, [row for r in ranks for row in r["rows"]]
+          f"{one_peak:.2f} GiB), {t_dm:.2f} s for the device-memory ranks "
+          f"(spawn included), {one_dm['seconds']:.2f} s for the one-process "
+          f"device-memory group (peak {one_dm['peak_gib']:.2f} GiB)",
+          flush=True)
+    return backend, world, [row for r in ranks + dms for row in r["rows"]]
+
+
+def hold_device_memory_ranks(dms, world):
+    """The device-memory group over the ranks (``dp_device_memory_run``'s
+    records, rank by rank): every rank launched the path's kernels; after
+    each epoch's exchange every rank's memory equals rank 0's, key for key
+    (checksums of every store and snapshot), with each scene's slots of
+    the epochs so far, each rank having loaded the others' slots; the
+    ranks took the same steps to the same networks; and in epoch 1 a SCONE
+    replay read a slot that another rank captured in epoch 0. Prints each
+    rank's exchanges, store bytes, peak and launches."""
+    ref = dms[0]
+    for r, dm in enumerate(dms):
+        c = dm["counts"]
+        print(f"[data parallel] device memory, rank {r}: {dm['seconds']:.2f} "
+              f"s ({world} scenes x {DP_DEVICE_POSES} pose x 3 epochs), "
+              f"stores {dm['exchanges'][2]['store_bytes'] / 1e9:.3f} GB, "
+              f"exchanges " + ", ".join(
+                  f"epoch {e}: {x['seconds']:.3f} s, "
+                  f"{x['written'] / 1e9:.3f} GB written, "
+                  f"{x['read'] / 1e9:.3f} GB read ({len(x['loaded'])} slots)"
+                  for e, x in sorted(dm["exchanges"].items()))
+              + f"; peak {dm['peak_gib']:.2f} GiB; launches "
+              f"{ {k: c[k] for k in DP_KERNELS} }, B3 by shape "
+              f"{c['sh_visibility_at']}; SCONE replays {dm['replays']}",
+              flush=True)
+        if any(c[k] <= 0 for k in DP_KERNELS):
+            fail(f"device memory, rank {r} did not launch every kernel of "
+                 f"the path: {c}")
+        if sorted(dm["memories"]) != [0, 1, 2]:
+            fail(f"rank {r}'s memory was read after epochs "
+                 f"{sorted(dm['memories'])}")
+        for e, held in dm["memories"].items():
+            if (len(held) != world * min(e + 1, 2)
+                    or held != ref["memories"][e]):
+                diff = sorted(k for k in set(held) | set(ref["memories"][e])
+                              if held.get(k) != ref["memories"][e].get(k))
+                fail(f"after epoch {e}'s exchange rank {r}'s device memory "
+                     f"holds {sorted(held)}, differing from rank 0's at "
+                     f"{diff}")
+            if len(dm["exchanges"][e]["loaded"]) != world - 1:
+                fail(f"rank {r} loaded {dm['exchanges'][e]['loaded']} at "
+                     f"epoch {e}'s end")
+        if dm["steps"] != ref["steps"] or dm["losses"] != ref["losses"]:
+            fail(f"rank {r}'s steps or losses differ from rank 0's")
+    crossed = [(r, key) for r, dm in enumerate(dms)
+               for e, key in dm["replays"]
+               if e == 1 and key in dm["exchanges"][0]["loaded"]]
+    if not crossed:
+        fail("no SCONE replay of epoch 1 read a slot that another rank "
+             "captured: pick scenes or a seed whose epochs move a scene "
+             "between ranks")
+    print(f"[data parallel] device memory: {world} ranks' memories equal "
+          f"after every exchange, {len(ref['steps'])} steps agreeing; "
+          f"epoch 1's SCONE replays of exchanged slots (rank, slot): "
+          f"{crossed}", flush=True)
+
+
+def hold_device_memory_one(ours, one, world):
+    """The device-memory group over the ranks (rank 0's records) against
+    the same run in one process: the networks bit for bit, else within
+    STEP_REL of each network's largest value, naming the first step after
+    which their checksums differ; with the networks equal, each epoch's
+    memory after its exchange equal to one process's, key for key."""
+    keys = [k for k, _ in ours["steps"]]
+    if keys != [k for k, _ in one["steps"]]:
+        fail(f"the ranks' steps {keys} are not one process's "
+             f"{[k for k, _ in one['steps']]}")
+    first = next((k for (k, a), (_, b) in zip(ours["steps"], one["steps"])
+                  if a != b), None)
+    errs = {}
+    for net, ref in one["nets"].items():
+        floats = [k for k, v in ref.items() if v.is_floating_point()]
+        scale = max(float(ref[k].abs().max()) for k in floats)
+        errs[net] = max(float((ours["nets"][net][k] - ref[k]).abs().max())
+                        for k in floats) / scale
+    memory = {e: sum(held.get(k) != one["memories"][e].get(k)
+                     for k in set(held) | set(one["memories"][e]))
+              for e, held in ours["memories"].items()}
+    print(f"[data parallel] device memory, {world} ranks against one process "
+          f"on the card: the networks "
+          + ("equal bit for bit" if first is None else
+             f"first differ after step {first} (epoch, pose, phase), by "
+             f"{errs} of their scale at the end")
+          + f"; memory keys differing after each epoch's exchange {memory}; "
+          f"losses {ours['losses']} and {one['losses']}", flush=True)
+    if first is not None and not max(errs.values()) <= STEP_REL:
+        fail(f"the device-memory group over {world} ranks moved the networks "
+             f"{errs} of their scale from one process's, first after step "
+             f"{first}")
+    if first is None and any(memory.values()):
+        fail(f"with the networks equal, the ranks' memories differ from one "
+             f"process's: keys differing after each epoch {memory}")
 
 
 def main():

@@ -31,6 +31,7 @@ import datetime
 import os
 import tempfile
 import time
+import traceback
 from typing import Callable, List, Optional, Sequence
 
 import torch
@@ -197,14 +198,41 @@ def _rank_main(index: int, fn: Callable, args: Sequence, world_size: int,
                backend_name: str, init_method: str, device_type: str,
                timeout: float, out_dir: str, threads: int):
     torch.set_num_threads(threads)
-    initialize(backend=backend_name, timeout=timeout, init_method=init_method,
-               world_size=world_size, rank=index, local_rank=index,
-               device=device_type)
     try:
+        initialize(backend=backend_name, timeout=timeout,
+                   init_method=init_method, world_size=world_size,
+                   rank=index, local_rank=index, device=device_type)
         out = fn(*args)
         torch.save(out, os.path.join(out_dir, f"rank_{index}.pt"))
+    except Exception:
+        # The stamp is taken before this rank leaves its group: a peer
+        # whose collective then loses it fails later.
+        _record_error(out_dir, index, time.time_ns(), traceback.format_exc())
+        raise
     finally:
         shutdown()
+
+
+def _record_error(out_dir: str, index: int, stamp: int, trace: str):
+    path = os.path.join(out_dir, f"error_{index}.pt")
+    torch.save({"stamp": stamp, "trace": trace, "pid": os.getpid()},
+               path + ".part")
+    os.replace(path + ".part", path)
+
+
+def _first_error(out_dir: str, world_size: int):
+    """(rank, record) of the earliest error that a rank recorded, or
+    None."""
+    found = []
+    for i in range(world_size):
+        path = os.path.join(out_dir, f"error_{i}.pt")
+        if os.path.exists(path):
+            rec = torch.load(path, weights_only=False)
+            found.append((rec["stamp"], i, rec))
+    if not found:
+        return None
+    _, i, rec = min(found)
+    return i, rec
 
 
 def spawn(fn: Callable, world_size: int, args: Sequence = (),
@@ -218,9 +246,13 @@ def spawn(fn: Callable, world_size: int, args: Sequence = (),
 
     ``fn`` must be importable by name (a module-level function). Each rank
     runs ``torch.set_num_threads(threads)``. A rank that raises ends every
-    other and this call raises its error; the group's collectives time
-    out after ``timeout`` seconds, and the whole run, if ``deadline`` is
-    given, after ``deadline`` seconds."""
+    other and this call raises its error: each failing rank records its
+    traceback with the time it raised, and the error raised here is the
+    earliest one's (``ProcessRaisedException``, "-- Process <i>
+    terminated ..."), not that of a rank whose collective then lost its
+    peer. The group's collectives time out after ``timeout`` seconds, and
+    the whole run, if ``deadline`` is given, after ``deadline`` seconds
+    (``TimeoutError``)."""
     import torch.multiprocessing as mp
 
     device_type = torch.device(device).type
@@ -238,6 +270,14 @@ def spawn(fn: Callable, world_size: int, args: Sequence = (),
                     raise TimeoutError(
                         f"{world_size} ranks of {fn.__name__} did not end "
                         f"within {deadline:.0f} s")
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+            first = _first_error(out_dir, world_size)
+            if first is None or first[0] == e.error_index:
+                raise
+            i, rec = first
+            raise mp.ProcessRaisedException(
+                f"\n\n-- Process {i:d} terminated with the following "
+                f"error:\n{rec['trace']}", i, rec["pid"]) from e
         finally:
             for p in ctx.processes:
                 if p.is_alive():

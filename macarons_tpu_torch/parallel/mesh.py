@@ -24,7 +24,9 @@ identity.
 
 from __future__ import annotations
 
+import hashlib
 import io
+import socket
 from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
@@ -247,6 +249,21 @@ def broadcast_grads(params: Iterable[torch.nn.Parameter], src: int):
         elif p.grad is None:
             p.grad = torch.zeros_like(p)
     broadcast_tensors([p.grad for p in present], src)
+
+
+def ranks_on_device() -> int:
+    """How many ranks of the group run on this rank's device: more than
+    one where gloo ranks share a card (1 outside a group). Each rank's
+    (host, device) goes to every rank in one all-reduce."""
+    if world() == 1:
+        return 1
+    dev = distributed.device()
+    host = int.from_bytes(hashlib.sha1(
+        socket.gethostname().encode()).digest()[:5], "little")
+    me = host * 1024 + (dev.index if dev.index is not None else 1023)
+    ids = torch.zeros(world(), dtype=torch.int64, device=dev)
+    ids[rank()] = me
+    return int((all_reduce_(ids) == me).sum())
 
 
 def _state_tensors(modules: Sequence[torch.nn.Module],

@@ -26,8 +26,13 @@ each scene group's trajectories and at every epoch's end).
 trajectory slot) has a ``FrameStore`` of its frames and a ``DepthStore`` of
 its remap's depths, the snapshots and poses are kept as tensors, and the
 counts are host integers, so no read or write of it synchronises with the
-card. ``flush_to_disk`` writes it all in the disk layout (once per epoch)
-and ``hydrate_from_disk`` loads a run's files back (on resume).
+card. ``flush_to_disk`` writes (scene, slot) keys in the disk layout (the
+trainer: at each epoch's end the slots captured in it) and
+``hydrate_from_disk`` loads a run's files back (on resume). Over
+data-parallel ranks every rank keeps a whole ``DeviceMemory``: at an
+epoch's end each writes the keys it captured and, after a barrier, loads
+the ones the other ranks captured (``load_from_disk(keys)``;
+``trainers.train_macarons.exchange_device_memory``).
 """
 
 from __future__ import annotations
@@ -625,69 +630,139 @@ class DeviceMemory:
         return len(self.scene_memory_paths) * self.n_trajectories * slot
 
     def hydrate_from_disk(self):
-        """Load a run's memory files into the stores (resume): every slot's
-        frames and depths up to the capacities, and the snapshots."""
-        mem = Memory(self.scene_memory_paths, self.current_epoch,
-                     self.n_trajectories)
-        dev = self.device
-        for path in self.scene_memory_paths:
-            for t in range(self.n_trajectories):
-                key = (path, t)
-                n = min(mem.n_frames(path, t), self.max_frames)
-                n_d = min(mem.n_depths(path, t), self.max_depths)
-                if n or n_d:
-                    self._new_stores(key)
-                if n:
-                    fr = mem.load_frame_sequence(path, n - 1, n, t)
-                    self._frames[key] = store_append(
-                        self._frames[key], *(torch.as_tensor(
-                            fr[k], device=dev) for k in
-                            ("images", "zbuf", "mask", "R", "T")))
-                for i in range(n_d):
-                    d = mem.load_depth(path, i, t)
-                    self._depths[key].append(*(torch.as_tensor(
-                        d[k], device=dev) for k in DepthStore.FIELDS))
-                if mem._has_snapshots(path, t):
-                    state, extra = mem.load_surface_scene(path, t)
-                    self._surface[key] = (GridState(*(
-                        torch.as_tensor(a, device=dev) for a in state)), extra)
-                    state, extra = mem.load_occupancy_field(path, t)
-                    self._occupancy[key] = (ProxyState(*(
-                        torch.as_tensor(a, device=dev) for a in state)), extra)
+        """Load a run's memory files into the stores (resume): every
+        (scene, slot) key, as ``load_from_disk`` loads it."""
+        self.load_from_disk([(path, t) for path in self.scene_memory_paths
+                             for t in range(self.n_trajectories)])
 
-    def flush_to_disk(self, scene_path: Optional[str] = None):
-        """Write everything (of ``scene_path``, or of every scene) through a
-        disk ``Memory`` in its layout: frames/<n>.npz, depths/<n>.npz,
-        surface/scene.npz, occupancy/field.npz, poses/epoch_<e>.npz; returns
-        once the files are written. Each (scene, slot)'s writes are waited
-        for before the next one's are queued, so the host holds at most one
-        slot's copies at a time."""
+    def load_from_disk(self, keys) -> int:
+        """Load each (scene path, slot) key of ``keys`` from its files (those
+        that ``flush_to_disk`` writes): its frames and depths up to the
+        capacities, and its snapshots. A key's stores and snapshots are
+        replaced, never appended to; a key without files is left empty.
+        Returns the bytes of the arrays read."""
         mem = Memory(self.scene_memory_paths, self.current_epoch,
                      self.n_trajectories)
-        paths = ([scene_path] if scene_path is not None
-                 else self.scene_memory_paths)
-        for path in paths:
-            for t in range(self.n_trajectories):
-                key = (path, t)
-                n = self.n_frames(path, t)
-                if n:
-                    st = self._frames[key]
-                    mem.save_frame_batch(path, 0, *(x[:n] for x in st[:5]),
-                                         self.zfar, traj=t)
-                ds = self._depths.get(key)
-                for i in range(0 if ds is None else ds.n):
-                    mem.save_depth(path, i, *(getattr(ds, k)[i:i + 1]
-                                              for k in DepthStore.FIELDS),
-                                   traj=t)
-                if key in self._surface:
-                    state, params = self._surface[key]
-                    mem.save_surface_scene(path, state, traj=t, **params)
-                if key in self._occupancy:
-                    state, params = self._occupancy[key]
-                    mem.save_occupancy_field(path, state, traj=t, **params)
-                for epoch, (X, V, idx, n_m, n_f) in self._poses.get(
-                        key, {}).items():
-                    mem.save_poses(path, epoch, X[:n_f] if n_f else X,
-                                   V[:n_f] if n_f else V,
-                                   idx[:n_m] if n_m else idx, traj=t)
-                mem.flush()
+        return sum(self._load_key(mem, path, t) for path, t in keys)
+
+    def _load_key(self, mem: Memory, path: str, t: int) -> int:
+        key, dev, nbytes = (path, t), self.device, 0
+
+        def tensors(arrays):
+            nonlocal nbytes
+            nbytes += sum(np.asarray(a).nbytes for a in arrays)
+            return (torch.as_tensor(a, device=dev) for a in arrays)
+
+        for held in (self._frames, self._depths, self._surface,
+                     self._occupancy):
+            held.pop(key, None)
+        n = min(mem.n_frames(path, t), self.max_frames)
+        n_d = min(mem.n_depths(path, t), self.max_depths)
+        if n or n_d:
+            self._new_stores(key)
+        if n:
+            fr = mem.load_frame_sequence(path, n - 1, n, t)
+            self._frames[key] = store_append(self._frames[key], *tensors(
+                [fr[k] for k in ("images", "zbuf", "mask", "R", "T")]))
+        for i in range(n_d):
+            d = mem.load_depth(path, i, t)
+            self._depths[key].append(*tensors(
+                [d[k] for k in DepthStore.FIELDS]))
+        if mem._has_snapshots(path, t):
+            state, extra = mem.load_surface_scene(path, t)
+            self._surface[key] = (GridState(*tensors(state)), extra)
+            state, extra = mem.load_occupancy_field(path, t)
+            self._occupancy[key] = (ProxyState(*tensors(state)), extra)
+        return nbytes
+
+    def keys(self) -> List:
+        """The (scene path, slot) keys that hold frames or depths."""
+        return sorted(set(self._frames) | set(self._depths))
+
+    def key_state(self, key) -> Dict[str, torch.Tensor]:
+        """What replay can read of ``key``: its filled frame and depth rows
+        and its snapshots' states, by name (the counts are the rows)."""
+        out = {}
+        n = self.n_frames(*key)
+        if n:
+            st = self._frames[key]
+            out.update({f"frames.{k}": getattr(st, k)[:n]
+                        for k in ("images", "zbuf", "mask", "R", "T")})
+        ds = self._depths.get(key)
+        if ds is not None and ds.n:
+            out.update({f"depths.{k}": getattr(ds, k)[:ds.n]
+                        for k in DepthStore.FIELDS})
+        for kind, held in (("surface", self._surface),
+                           ("occupancy", self._occupancy)):
+            if key in held:
+                state, _ = held[key]
+                out.update({f"{kind}.{k}": v for k, v in
+                            state._asdict().items()})
+        return out
+
+    def flush_to_disk(self, keys=None) -> int:
+        """Write the (scene path, slot) keys ``keys`` (default every scene's
+        every slot) through a disk ``Memory`` in its layout:
+        frames/<n>.npz, depths/<n>.npz, surface/scene.npz,
+        occupancy/field.npz, poses/epoch_<e>.npz; returns once the files
+        are written, with the bytes of the arrays written. A key's frame
+        and depth files past its counts, and snapshot files it does not
+        hold, are removed, so that its files hold what the memory holds
+        (``load_from_disk`` gives it back). Each key's writes are waited
+        for before the next one's are queued, so the host holds at most
+        one slot's copies at a time."""
+        mem = Memory(self.scene_memory_paths, self.current_epoch,
+                     self.n_trajectories)
+        if keys is None:
+            keys = [(path, t) for path in self.scene_memory_paths
+                    for t in range(self.n_trajectories)]
+        nbytes = 0
+        for path, t in keys:
+            key = (path, t)
+            held = key in self._frames or key in self._depths
+            n = self.n_frames(path, t)
+            if n:
+                st = self._frames[key]
+                frames = [x[:n] for x in st[:5]]
+                nbytes += sum(x.nbytes for x in frames)
+                mem.save_frame_batch(path, 0, *frames, self.zfar, traj=t)
+            ds = self._depths.get(key)
+            n_d = 0 if ds is None else ds.n
+            for i in range(n_d):
+                depth = [getattr(ds, k)[i:i + 1] for k in DepthStore.FIELDS]
+                nbytes += sum(x.nbytes for x in depth)
+                mem.save_depth(path, i, *depth, traj=t)
+            if key in self._surface:
+                state, params = self._surface[key]
+                nbytes += sum(x.nbytes for x in state)
+                mem.save_surface_scene(path, state, traj=t, **params)
+            if key in self._occupancy:
+                state, params = self._occupancy[key]
+                nbytes += sum(x.nbytes for x in state)
+                mem.save_occupancy_field(path, state, traj=t, **params)
+            for epoch, (X, V, idx, n_m, n_f) in self._poses.get(
+                    key, {}).items():
+                poses = (X[:n_f] if n_f else X, V[:n_f] if n_f else V,
+                         idx[:n_m] if n_m else idx)
+                nbytes += sum(x.nbytes for x in poses)
+                mem.save_poses(path, epoch, *poses, traj=t)
+            mem.flush()
+            if held:
+                _remove_past(mem.frames_dir(path, t), n)
+                _remove_past(mem._dir(path, "depths", t), n_d)
+                for kind, name, snaps in (
+                        ("surface", "scene.npz", self._surface),
+                        ("occupancy", "field.npz", self._occupancy)):
+                    f = os.path.join(mem._dir(path, kind, t), name)
+                    if key not in snaps and os.path.exists(f):
+                        os.remove(f)
+        return nbytes
+
+
+def _remove_past(directory: str, n: int):
+    """Remove ``directory``'s numbered files <i>.npz from i = n on (those
+    of a longer trajectory that an earlier epoch left in the slot)."""
+    for f in os.listdir(directory):
+        stem, ext = os.path.splitext(f)
+        if ext == ".npz" and stem.isdigit() and int(stem) >= n:
+            os.remove(os.path.join(directory, f))

@@ -11,9 +11,11 @@ memory goes under ``<memory-root>/<scene>/<memory_dir_name>/``.
 With ``n_parallel_scenes`` > 1 on CUDA, each scene group spreads over
 ``group_ranks`` cards (the pinned ``n_devices``, else the largest divisor
 of the group within the visible cards), one process per card (NCCL),
-as the JAX package shards the group over its mesh; this needs
-``"device_memory": false``. Under ``torchrun --nproc_per_node N`` each
-process is a rank.
+as the JAX package shards the group over its mesh. Either replay memory
+works there: with the device memory (the default) every card holds every
+scene's slots, and the cards exchange the slots they captured at each
+epoch's end. Under ``torchrun --nproc_per_node N`` each process is a
+rank.
 """
 
 import argparse

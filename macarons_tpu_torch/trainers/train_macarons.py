@@ -26,7 +26,10 @@ trajectory's frames and depths stay on the card, the episode (pose, visited
 set, histories, the argmax and the move) is a ``DeviceEpisode``, and
 neither the pose loop nor the memory asks the card for a number until the
 epoch ends: the memory is then written to disk once and the losses are
-read. The same trajectory function and step serve both memories: each
+read. Over data-parallel ranks every rank keeps a whole ``DeviceMemory``
+and the ranks exchange the slots they captured at each epoch's end
+(``exchange_device_memory``). The same trajectory function and step serve
+both memories: each
 memory comes with an episode adapter (``HOST_EPISODES`` for the disk memory,
 the host ``Camera``'s; ``DEVICE_EPISODES`` for the device one), which
 ``run_training`` picks once and the pose loop asks for the start, the
@@ -1244,14 +1247,16 @@ def run_trajectories_parallel(rt: MacaronsRuntime, scenes: List[SceneState],
     and SCONE steps are the group's; depth replay draws the group's
     frames from ``rs`` on every rank and trains each rank's share; SCONE
     replay goes scene by scene in group order, the owner's gradient
-    broadcast and every rank stepping (``replay_scone_group``). Each
-    rank's queued memory writes land, and the ranks meet, before the
-    group's first replay."""
+    broadcast and every rank stepping (``replay_scone_group``). The ranks
+    meet before the group's first replay, each rank's queued writes to a
+    disk memory landed (a ``DeviceMemory`` holds every rank's past slots
+    already: replay never reads the current one)."""
     params = rt.params
     S = len(scenes)
     episodes = episodes or HOST_EPISODES
     if mesh.world() > 1 and n_memory_loops > 0:
-        memory.flush()
+        if isinstance(memory, Memory):
+            memory.flush()
         distributed.barrier()
     episodes.start(rt, scenes, memory, memory_paths, gen, rs, n_poses)
     curr_dists = [R.curriculum_sampling_distances(
@@ -1389,10 +1394,9 @@ def group_ranks(params: Params, n_cards: int) -> int:
 def check_group_ranks(params: Params, world: int, n_scenes: int):
     """Raise unless an epoch's scene groups (``n_scenes`` scenes) divide
     over ``world`` data-parallel ranks (a pinned ``n_devices`` must be the
-    world) and the replay memory is the disk one: ``DeviceMemory`` keeps
-    one process's stores, and a replay of them across ranks is not ported.
-    A trailing group of one scene runs on rank 0 alone; a larger one must
-    split over the ranks too, as the JAX package's mesh must shard it."""
+    world). A trailing group of one scene runs on rank 0 alone; a larger
+    one must split over the ranks too, as the JAX package's mesh must
+    shard it."""
     if world == 1:
         return
     group = scene_group_size(params)
@@ -1411,11 +1415,41 @@ def check_group_ranks(params: Params, world: int, n_scenes: int):
     if pinned and pinned != world:
         raise ValueError(f"n_devices={pinned} is pinned but {world} ranks "
                          f"run")
-    if params.get("device_memory", True):
-        raise ValueError(
-            f"a scene group over {world} ranks needs the disk replay "
-            f'memory: set "device_memory": false (the device memory '
-            f"across ranks is a later slice of the port)")
+
+
+def group_owners(n_members: int, world: int) -> List[int]:
+    """The rank that trains each of a scene group's ``n_members`` scenes:
+    contiguous blocks of n_members / world, or rank 0 for all of a
+    trailing group that does not split (``check_group_ranks``)."""
+    if n_members % world != 0:
+        return [0] * n_members
+    return [i // (n_members // world) for i in range(n_members)]
+
+
+def exchange_device_memory(memory: DeviceMemory, owners: Dict[str, int],
+                           verbose: bool = False) -> Dict:
+    """The device memory's epoch end: each rank (or the one process)
+    writes the (scene, current slot) keys that it captured this epoch
+    (``owners``: scene memory path -> rank; the memory's other keys are on
+    disk since their own epoch or the resume), the ranks meet, and each
+    loads the keys of the others from those files, so every rank holds
+    what one process's memory holds. Returns the exchange's seconds, the
+    bytes this rank wrote and read, and the keys it loaded."""
+    t0 = time.perf_counter()
+    me, slot = mesh.rank(), memory.current_trajectory()
+    theirs = [(p, slot) for p, r in owners.items() if r != me]
+    written = memory.flush_to_disk(
+        [(p, slot) for p, r in owners.items() if r == me])
+    # Every rank's files are written before any rank reads them.
+    distributed.barrier()
+    read = memory.load_from_disk(theirs)
+    out = {"seconds": time.perf_counter() - t0, "written": written,
+           "read": read, "loaded": theirs}
+    if verbose:
+        print(f"epoch {memory.current_epoch}, rank {me}: device memory "
+              f"exchange {out['seconds']:.2f} s, {written / 1e9:.3f} GB "
+              f"written, {read / 1e9:.3f} GB read ({len(theirs)} slots)")
+    return out
 
 
 def sync_training_state(rt: "MacaronsRuntime", opts: Dict, src: int,
@@ -1452,25 +1486,29 @@ DEVICE_MEMORY_HEADROOM_GIB = 36.0
 def check_device_memory_fits(memory: DeviceMemory,
                              headroom_gib: float = DEVICE_MEMORY_HEADROOM_GIB):
     """Raise, before anything is stored, if ``memory``'s stores for every
-    (scene, slot) plus ``headroom_gib`` GiB for training exceed what the
-    card has free now (its free bytes and the allocator's cached ones).
-    The stores are allocated a slot at a time as trajectories begin, so
-    without this a run that does not fit fails epochs in. Nothing is
-    checked off the card."""
+    (scene, slot) plus ``headroom_gib`` GiB for training, times the ranks
+    that share this card (``mesh.ranks_on_device``: each holds a whole
+    memory), exceed what the card has free now (its free bytes and this
+    rank's allocator's cached ones). The stores are allocated a slot at a
+    time as trajectories begin, so without this a run that does not fit
+    fails epochs in. Nothing is checked off the card."""
     dev = memory.device
     if dev.type != "cuda":
         return
+    sharing = mesh.ranks_on_device()
     free, _ = torch.cuda.mem_get_info(dev)
     free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
     need = memory.full_nbytes()
     headroom = int(headroom_gib * 2 ** 30)
-    if need + headroom > free:
+    if sharing * (need + headroom) > free:
+        on_card = f" for each of the {sharing} ranks on the card" \
+            if sharing > 1 else ""
         raise RuntimeError(
             f"the device memory needs {need / 2 ** 30:.2f} GiB for "
             f"{len(memory.scene_memory_paths)} scenes x "
             f"{memory.n_trajectories} trajectory slots of "
             f"{memory.max_frames} frames, and training about "
-            f"{headroom_gib:.1f} GiB more, but "
+            f"{headroom_gib:.1f} GiB more{on_card}, but "
             f"the card has {free / 2 ** 30:.2f} GiB free: set "
             f'"device_memory": false to keep the replay memory on disk, or '
             f"train fewer scenes, slots or poses")
@@ -1504,10 +1542,12 @@ def run_training(params: Params, data_path: Optional[str] = None,
     epoch's order and mirroring, sets up and trains its own block, and
     the steps are the group's (``run_trajectories_parallel``); a trailing
     group of one scene runs on rank 0 alone and its state goes to every
-    rank. Rank 0 validates and writes the checkpoints, and every rank reads
-    them. While rank 0 works alone, the others wait in
-    ``distributed.await_lone_work``, which the group's timeout does not
-    bound. Returns (model, per-epoch mean losses)."""
+    rank. With the device memory every rank holds every scene's slots: at
+    the epoch's end each writes the slots it captured and loads the
+    others' (``exchange_device_memory``). Rank 0 validates and writes the
+    checkpoints, and every rank reads them. While rank 0 works alone, the
+    others wait in ``distributed.await_lone_work``, which the group's
+    timeout does not bound. Returns (model, per-epoch mean losses)."""
     dev = resolve_device(device)
     data_path = data_path or params.data_path
     group = scene_group_size(params)
@@ -1515,6 +1555,7 @@ def run_training(params: Params, data_path: Optional[str] = None,
     dataset = SceneDataset(data_path)
     check_group_ranks(params, world, min(len(dataset), max_scenes_per_epoch
                                          or len(dataset)))
+    per_rank = verbose
     verbose = verbose and distributed.is_master()
     seed = params.get("random_seed", 42)
     torch_seed = params.get("torch_seed", 5)
@@ -1644,6 +1685,8 @@ def run_training(params: Params, data_path: Optional[str] = None,
                      if rs.random() < sym_p]
                     if params.get("random_mirror_scenes", True) else None)
 
+        owners = {}  # scene memory path -> the rank training it
+
         def make_scene(si, mirrored):
             item = dataset[int(si)]
             scene_gen = seeded_generator(dev, torch_seed, epoch, si)
@@ -1662,11 +1705,10 @@ def run_training(params: Params, data_path: Optional[str] = None,
             members = [(si, mirroring()) for si in
                        scene_indices[g0:g0 + group]]
             alone = world > 1 and len(members) % world != 0
-            if alone:
-                mine = members if distributed.is_master() else []
-            else:
-                n_own = len(members) // world
-                mine = members[mesh.rank() * n_own:(mesh.rank() + 1) * n_own]
+            ranks = group_owners(len(members), world)
+            owners.update({all_paths[int(si)]: r
+                           for (si, _), r in zip(members, ranks)})
+            mine = [m for m, r in zip(members, ranks) if r == mesh.rank()]
             kw = dict(freeze_scone=freeze_scone, warmup_phase=warmup,
                       on_phase=hook, **common)
             traj = None
@@ -1684,7 +1726,8 @@ def run_training(params: Params, data_path: Optional[str] = None,
                                               **kw)
                     if alone:
                         # The other ranks wait for these losses as floats.
-                        memory.flush()
+                        if dmem is None:
+                            memory.flush()
                         traj = {k: [float(v) for v in vs]
                                 for k, vs in traj.items()}
             if alone:
@@ -1704,14 +1747,15 @@ def run_training(params: Params, data_path: Optional[str] = None,
                 print(f"epoch {epoch}: {[s.name for s in scenes]} done (the "
                       f"losses are read at the end of the epoch)")
 
-        # The epoch's end: the device memory goes to disk (the disk memory's
-        # queued writes land), then the losses come to the host.
+        # The epoch's end: the device memory goes to disk and takes in the
+        # other ranks' slots (the disk memory's queued writes land), then
+        # the losses come to the host.
         if dmem is not None:
-            dmem.flush_to_disk()
+            exchange_device_memory(dmem, owners, per_rank)
         else:
             memory.flush()
-        # Every rank's files are written before any rank reads them.
-        distributed.barrier()
+            # Every rank's files are written before any rank reads them.
+            distributed.barrier()
         epoch_losses = {k: [float(v) for v in vs]
                         for k, vs in epoch_losses.items()}
         mean_depth = (float(np.mean(epoch_losses["depth"]))

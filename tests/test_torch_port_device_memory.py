@@ -8,6 +8,11 @@
   same outputs.
 - ``flush_to_disk`` read by JAX ``Memory``, and JAX
   ``DeviceMemory.flush_to_disk`` hydrated by the port: array for array.
+- Two ranks' memories of disjoint scenes, each writing its keys
+  (``flush_to_disk(keys)``, stale files of a longer trajectory removed)
+  and loading the other's (``load_from_disk``): both equal one memory of
+  every scene key for key, and their samplers and windows equal JAX
+  ``DeviceMemory``'s over the same arrays.
 - The episode functions on a 4x4x4x3x8 lattice with an occupied cell, the
   azimuth's wrap and clamped duplicates at an edge, against JAX's and the
   host ``Camera``; ``episode_random_start`` on injected index batches in its
@@ -23,7 +28,8 @@
 - The port's own: ``flush_to_disk`` holding one slot's host copies at a
   time, the disk ``Memory``'s ``depth_stack`` against the device one's,
   and the device memory's fit on the card (``check_device_memory_fits``
-  on a scripted ``mem_get_info``, and ``run_training`` stopping on it).
+  on a scripted ``mem_get_info``, one rank or two sharing the card, and
+  ``run_training`` stopping on it).
 """
 
 import json
@@ -145,16 +151,25 @@ def test_depth_store():
         same(ds.gather(idx), jds.gather(idx))
 
 
-def fill(dm, paths, rs, lib):
+COUNTS = {(0, 0): (7, 3), (0, 1): (2, 0), (0, 2): (11, 5), (1, 0): (5, 2),
+          (1, 2): (3, 1)}  # (scene, slot): (frames, depths)
+
+
+def fill(dm, paths, rs, lib, scenes=(0, 1)):
     """The same trajectories in either package's DeviceMemory: frames,
-    depths, snapshots and poses in 3 slots of two scenes."""
+    depths, snapshots and poses in 3 slots of two scenes; only those of
+    ``scenes`` are kept (the others go to a memory that is dropped, so the
+    draws are the same)."""
     arr = (lambda a: jnp.asarray(a)) if lib == "jax" else \
         (lambda a: torch.tensor(np.asarray(a)))
-    counts = {(0, 0): (7, 3), (0, 1): (2, 0), (0, 2): (11, 5),
-              (1, 0): (5, 2), (1, 2): (3, 1)}
-    for (p, slot), (n, n_d) in counts.items():
-        path = paths[p]
+    mine = dm
+    dropped = type(dm)(paths, n_trajectories=dm.n_trajectories,
+                       max_frames=dm.max_frames, max_depths=dm.max_depths,
+                       height=dm.height, width=dm.width, zfar=dm.zfar)
+    for (p, slot), (n, n_d) in COUNTS.items():
+        dm = mine if p in scenes else dropped
         dm.current_epoch = slot
+        path = paths[p]
         store = dm.begin_trajectory(path)
         for K in (1, n - 1) if n > 1 else (1,):
             f = frames(rs, K)
@@ -181,7 +196,7 @@ def fill(dm, paths, rs, lib):
                       arr(rs.normal(size=(12, 2)).astype(np.float32)),
                       arr(rs.integers(0, 5, size=(6, 5))), n_moves=4,
                       n_frames=9)
-    dm.current_epoch = 0
+    mine.current_epoch = 0
 
 
 def device_memories(tmp_path):
@@ -196,6 +211,13 @@ def device_memories(tmp_path):
 
 def test_samplers(tmp_path):
     paths, ours, ref = device_memories(tmp_path)
+    check_samplers(paths, ours, ref)
+
+
+def check_samplers(paths, ours, ref):
+    """The port's and JAX's DeviceMemory over the same trajectories: the
+    counts, the three samplers from one default_rng seed (each exclusion),
+    the windows and the depth stacks."""
     for p in paths:
         for slot in range(3):
             assert ours.n_frames(p, slot) == ref.n_frames(p, slot)
@@ -232,6 +254,52 @@ def test_samplers(tmp_path):
          ref.depth_stack(paths[0], 2, [1, 2, 3]))
     same(ours.load_depth(paths[0], 4, traj=2), ref.load_depth(paths[0], 4,
                                                               traj=2))
+
+
+def test_exchange_over_ranks(tmp_path):
+    """Two ranks' memories, each holding one scene's trajectories: each
+    writes its keys (one rank's slot dirs also hold a longer trajectory's
+    files, which its flush removes) and loads the other's. Then both hold
+    what one memory of both scenes holds, key for key, and replay from
+    either draws and reads what JAX DeviceMemory does over the same
+    arrays."""
+    paths, ours, ref = device_memories(tmp_path)
+    kw = dict(n_trajectories=3, max_frames=12, max_depths=6, height=H,
+              width=W, zfar=40.0)
+    ranks = [mem.DeviceMemory(paths, **kw) for _ in (0, 1)]
+    keys = []
+    for r, dm in enumerate(ranks):
+        fill(dm, paths, np.random.default_rng(2), "torch", scenes=(r,))
+        keys.append([(paths[p], t) for p, t in COUNTS if p == r])
+        assert dm.keys() == sorted(keys[r])
+    # A longer trajectory's files in scene 0's slot 0.
+    disk = mem.Memory(paths, n_trajectories=3)
+    stale = dict(zip(("rgb", "zbuf", "mask", "R", "T"), frames(
+        np.random.default_rng(3), 1)))
+    for i in range(7, 10):
+        disk.save_frame(paths[0], i, **stale, zfar=40.0, traj=0)
+        disk.save_depth(paths[0], 3 + i, *depths(np.random.default_rng(i),
+                                                 1), traj=0)
+    disk.flush()
+    written = [dm.flush_to_disk(k) for dm, k in zip(ranks, keys)]
+    assert disk.n_frames(paths[0], 0) == 7 and disk.n_depths(paths[0], 0) == 3
+    read = [ranks[0].load_from_disk(keys[1]),
+            ranks[1].load_from_disk(keys[0])]
+    # The bytes read are the keys' stores and snapshots; those written
+    # also hold the poses.
+    for r in (0, 1):
+        held = sum(v.nbytes for key in keys[1 - r]
+                   for v in ours.key_state(key).values())
+        assert 0 < read[r] == held < written[1 - r]
+    for dm in ranks:
+        assert dm.keys() == ours.keys()
+        for key in ours.keys():
+            same(dm.key_state(key), ours.key_state(key))
+        check_samplers(paths, dm, ref)
+    # A key without files is left empty; loading a key again replaces it.
+    ranks[0].load_from_disk([(paths[1], 1), (paths[0], 0)])
+    assert ranks[0].n_frames(paths[1], 1) == 0
+    same(ranks[0].key_state((paths[0], 0)), ours.key_state((paths[0], 0)))
 
 
 def test_flush_and_hydrate(tmp_path):
@@ -346,12 +414,15 @@ def test_device_memory_fit_check(monkeypatch, free_gib):
     403 frames, 43.28 GB) plus the headroom against the free bytes and the
     allocator's cached ones; a run that does not fit raises naming
     device_memory false, one that fits passes; off the card nothing is
-    asked."""
+    asked. Two ranks sharing the card each need their stores and
+    headroom: the free bytes that hold one rank's do not hold two, and
+    twice those bytes (and 1 GiB) do only where they held one."""
     calls = []
+    free = [free_gib]
 
     def mem_get_info(device=None):
         calls.append(device)
-        return int(free_gib * GIB), 80 * GIB
+        return int(free[0] * GIB), 80 * GIB
 
     monkeypatch.setattr(torch.cuda, "mem_get_info", mem_get_info)
     monkeypatch.setattr(torch.cuda, "memory_reserved",
@@ -377,6 +448,16 @@ def test_device_memory_fit_check(monkeypatch, free_gib):
     TM.check_device_memory_fits(mem.DeviceMemory(paths, device="cpu", **kw),
                                 TM.DEVICE_MEMORY_HEADROOM_GIB)
     assert len(calls) == 2
+    monkeypatch.setattr(TM.mesh, "ranks_on_device", lambda: 2)
+    with pytest.raises(RuntimeError, match="each of the 2 ranks on the card"):
+        TM.check_device_memory_fits(dm, 2.0)
+    free[0] = 2 * free_gib + 1
+    if free_gib == 41.0:
+        TM.check_device_memory_fits(dm, 2.0)
+    else:
+        with pytest.raises(RuntimeError, match="each of the 2 ranks"):
+            TM.check_device_memory_fits(dm, 2.0)
+    assert len(calls) == 4
 
 
 def test_run_training_checks_fit(root, tmp_path, monkeypatch):

@@ -2,8 +2,9 @@
 ``parallel/`` modules against the JAX package's on ``make_mesh(n)``.
 
 One module fixture starts every spawn (``parallel.distributed.spawn``, a
-120 s timeout and deadline each) as soon as its inputs exist, and computes
-the JAX references meanwhile (the group steps' in a process of their own).
+120 s timeout and deadline each, 300 s for the group training runs) as
+soon as its inputs exist, and computes the JAX references meanwhile (the
+group steps' in a process of their own).
 World 2 runs every case of ``torch_dist_ranks``, world 4 the group steps
 and the scorer (BatchNorm over four ranks, one scene a rank, the scorer's
 padding); each rank returns the group's losses, its gradients and
@@ -44,11 +45,20 @@ widths:
   one process's run bit for bit, the reported depth loss at rtol 1e-6,
   both ranks equal bit for bit; at group 4 the three scenes are a
   trailing group that does not split over two ranks, and the run raises;
+- the same group run with the device memory: epochs 0 and 1 in one run,
+  then a resume (2 slots), over two ranks and in one process. The
+  weights and SCONE losses bit for bit, the depth loss at rtol 1e-6;
+  each rank's memory after every epoch's exchange and after the resume's
+  hydration equal to one process's, key for key; the slots each rank
+  loaded are the ones the other captured (owners from the seeds); the
+  ranks' flushed files equal one process's, file for file; and a SCONE
+  replay in epoch 1 reads a slot that the other rank captured;
 - work that rank 0 does alone outlasts the group's timeout while the
   other waits in ``await_lone_work``; a rank that raises ends the run at
-  once, and a run past its deadline is ended; ``initialize`` reads
-  torchrun's, the JAX package's and SLURM's launch variables in that
-  order.
+  once, and ``spawn`` reports it even when the rank it failed first
+  failed too (the launcher saw the later failure first); a run past its
+  deadline is ended; ``initialize`` reads torchrun's, the JAX package's
+  and SLURM's launch variables in that order.
 """
 
 import copy
@@ -88,6 +98,7 @@ from macarons_tpu_torch.ops.geometry import FoVCamera
 from macarons_tpu_torch.parallel import distributed
 from macarons_tpu_torch.trainers import pretrain_occ as po
 from macarons_tpu_torch.trainers import pretrain_vis as pv
+from macarons_tpu_torch.trainers import train_macarons as TM
 from macarons_tpu_torch.utils.convert import flax_to_torch
 import torch_dist_ranks as ranks
 from test_torch_port_pretrain_occ import SMALL, jax_loss_fn
@@ -104,6 +115,9 @@ from torch_port_helpers import OCC_KW, TINY, VIS_KW, make_shapenet_root, \
 
 WORLDS = (2, 4)
 SPAWN_TIMEOUT = 120.0
+# The group training runs take 60-75 s each alone, beside the module's
+# other spawns; under a loaded test run, more than twice that.
+TRAINING_TIMEOUT = 300.0
 GRAD_REL = 1e-3
 # The group depth step runs in float64 on the ranks and in the JAX
 # package (whose disparity heads stay float32 under x64), as
@@ -115,12 +129,13 @@ N_ACTIVE = 3
 N_CAND = 5
 
 
-def spawn(fn, world, *args):
-    """``fn(*args)`` over ``world`` ranks. The arguments are copied first:
+def spawn(fn, world, *args, limit=SPAWN_TIMEOUT):
+    """``fn(*args)`` over ``world`` ranks, the group's timeout and the
+    run's deadline ``limit`` seconds. The arguments are copied first:
     starting the ranks moves the tensors that they are given into shared
     memory, under any view that the caller holds of them."""
     return distributed.spawn(fn, world, copy.deepcopy(args), device="cpu",
-                             timeout=SPAWN_TIMEOUT, deadline=SPAWN_TIMEOUT)
+                             timeout=limit, deadline=limit)
 
 
 def same_on_every_rank(results, key, fields=("loss", "grads", "params")):
@@ -449,24 +464,33 @@ def runs(shapenet_root, nets, vis_lane, group_inputs,  # noqa: F811
     are taken on make_mesh(4), the largest world, in a process of their
     own, and both worlds are held to them (their inputs do not depend on
     the world). Returns {world:
-    (inputs, results, references)}, "training": (one process's, the two
-    ranks', the run's directory) and "failing": the failing runs'
-    (error, seconds)."""
+    (inputs, results, references)}, "training" and "device_memory": (one
+    process's, the two ranks', the run's directory) of the disk and the
+    device memory, "failing": the failing runs' (error, seconds), and
+    "both_fail": the run whose two ranks fail."""
     occ_vars, _ = nets
     out = {}
-    with ThreadPoolExecutor(6) as pool, ProcessPoolExecutor(
+    with ThreadPoolExecutor(9) as pool, ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn")) as jax_pool:
         training = training_jobs(pool, cube_root,
                                  tmp_path_factory.mktemp("training"))
+        device_training = training_jobs(
+            pool, cube_root, tmp_path_factory.mktemp("device_memory"),
+            device_memory=True)
         past = tmp_path_factory.mktemp("failing") / "past"
+        markers = tmp_path_factory.mktemp("both_fail")
         failing = [pool.submit(attempt, spawn, ranks.failing_rank, 2,
                                str(past)),
                    pool.submit(attempt, distributed.spawn,
                                ranks.sleeping_rank, 2, (60,), device="cpu",
                                timeout=SPAWN_TIMEOUT, deadline=5.0)]
+        both_fail = pool.submit(attempt, spawn, ranks.both_ranks_fail, 2,
+                                str(markers))
         depth_inputs = group_depth_inputs()
         sg = scone_group(group_inputs)
-        group_job = jax_pool.submit(group_references, sg)
+        # A copy: sending tensors to a process moves their storage into
+        # shared memory, under the views that JAX made of them here.
+        group_job = jax_pool.submit(group_references, copy.deepcopy(sg))
         batches = pretrain_batches(shapenet_root, 2)
         jobs = {}
         for n in WORLDS:
@@ -482,7 +506,11 @@ def runs(shapenet_root, nets, vis_lane, group_inputs,  # noqa: F811
             out[n] = (inputs, job.result(), dict(shared, **refs))
         out["training"] = (training[1].result()[0], training[0].result(),
                            training[2])
+        out["device_memory"] = (device_training[1].result()[0],
+                                device_training[0].result(),
+                                device_training[2])
         out["failing"] = [job.result() for job in failing] + [past]
+        out["both_fail"] = both_fail.result()
     return out
 
 
@@ -645,30 +673,44 @@ def test_sharded_scorer(runs, n):
                                atol=1e-7)
 
 
+@pytest.mark.parametrize("n", WORLDS, ids=lambda n: f"world{n}")
+def test_ranks_on_device(runs, n):
+    """Every rank of a world on this host's CPU counts the world's ranks
+    on its device (as gloo ranks sharing a card count each other)."""
+    _, results, _ = runs[n]
+    assert [r["on_device"] for r in results] == [n] * n
+
+
 # ---------------------------------------------------------------------------
 # Training over two ranks, and failures
 # ---------------------------------------------------------------------------
 
 
-def training_jobs(pool, cube_root, tmp):  # noqa: F811
+def training_jobs(pool, cube_root, tmp,  # noqa: F811
+                  device_memory=False):
     """Start run_training at group 2 on three scenes over two ranks and in
     one process (its own spawned process, so that both run beside the
-    module's other work): (two ranks' future, one process's future, the
-    run's directory)."""
+    module's other work), with the disk memory (``training_case``) or the
+    device memory (``device_memory_training_case``): (two ranks' future,
+    one process's future, the run's directory)."""
     root = tmp / "scenes"
     root.mkdir()
     for name in SCENES:
         os.symlink(os.path.join(cube_root, name), root / name)
     params = dict(TRAIN, data_path=str(root), n_parallel_scenes=2,
-                  use_perfect_depth=True, macarons_model_name="dp_mac")
+                  use_perfect_depth=True, macarons_model_name="dp_mac",
+                  device_memory=device_memory)
+    case = ranks.device_memory_training_case if device_memory else \
+        ranks.training_case
 
     def run_dirs(tag):
         return dict(params=params, weights_dir=str(tmp / tag / "w"),
                     memory_root=str(tmp / tag / "mem"))
 
-    return (pool.submit(spawn, ranks.training_case, 2, run_dirs("two")),
-            pool.submit(spawn, ranks.training_case, 1, run_dirs("one")),
-            tmp)
+    return (pool.submit(spawn, case, 2, run_dirs("two"),
+                        limit=TRAINING_TIMEOUT),
+            pool.submit(spawn, case, 1, run_dirs("one"),
+                        limit=TRAINING_TIMEOUT), tmp)
 
 
 def test_group_training_two_ranks(runs):
@@ -711,6 +753,85 @@ def test_group_training_two_ranks(runs):
             "over the 2 ranks" in r["trailing"]
 
 
+def memory_files(root):
+    """Every file under a memory root: relative path -> its arrays."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            with np.load(os.path.join(d, f)) as z:
+                out[os.path.relpath(os.path.join(d, f), root)] = dict(z)
+    return out
+
+
+def test_device_memory_training_two_ranks(runs):
+    """run_training at group 2 with the device memory over two ranks against
+    one process, with perfect depth, on three scenes and 2 slots: epochs
+    0 and 1 in one run, then a resume that hydrates the memory (no epoch
+    is left; test_group_training_two_ranks resumes training). The
+    weights and SCONE losses are equal bit for bit (as with the disk
+    memory), and so is every rank's memory after each epoch's exchange
+    and after the resume's hydration: every key's frames, depths and
+    snapshots. At each epoch's end a rank loads the slots the other rank
+    captured, whose owners follow from the epoch's permutation of the
+    seed; the files the ranks wrote are one process's. From the seeds, a
+    scene trained by rank 0 in epoch 0 is trained by rank 1 in epoch 1,
+    and rank 1's SCONE replay reads that slot."""
+    one, two, tmp = runs["device_memory"]
+    assert all(r["agree"] for r in two)
+    assert set(one["state"]) == {"occ", "vis"}
+    for net, state in one["state"].items():
+        for r in two:
+            for k, v in state.items():
+                torch.testing.assert_close(r["state"][net][k], v, rtol=0,
+                                           atol=0, msg=f"{net}.{k}")
+    assert two[0]["losses"] == two[1]["losses"]
+    assert len(one["losses"]) == 2
+    for ours, ref in zip(two[0]["losses"], one["losses"]):
+        assert ours["occ"] == ref["occ"] and ours["cov"] == ref["cov"]
+        np.testing.assert_allclose(ours["depth"], ref["depth"], rtol=1e-6)
+        assert ref["occ"] > 0 and ref["cov"] > 0
+    assert set(one["memories"]) == {0, 1, "hydrated"}
+    for when, ref in one["memories"].items():
+        assert len(ref) == len(SCENES) * (1 if when == 0 else 2)
+        for r in two:
+            assert set(r["memories"][when]) == set(ref), when
+            for key, state in ref.items():
+                assert set(r["memories"][when][key]) == set(state)
+                assert state["frames.images"].shape[0] == 1 + 2 + 3 * 2
+                assert state["depths.depth"].shape[0] > 0
+                for k, v in state.items():
+                    torch.testing.assert_close(
+                        r["memories"][when][key][k], v, rtol=0, atol=0,
+                        msg=f"{when} {key} {k}")
+    # The owners of each epoch's slots, from the seeds.
+    owners = {}
+    for epoch in range(2):
+        order = np.random.default_rng([TRAIN["random_seed"],
+                                       epoch]).permutation(len(SCENES))
+        for g0 in range(0, len(order), 2):
+            group = order[g0:g0 + 2]
+            for si, r in zip(group, TM.group_owners(len(group), 2)):
+                owners[(epoch, SCENES[si])] = r
+        for r in (0, 1):
+            got = two[r]["exchanges"][epoch]
+            assert sorted(got["loaded"]) == sorted(
+                (name, epoch % 2) for name in SCENES
+                if owners[(epoch, name)] != r)
+            assert got["written"] > 0 and got["read"] > 0
+        assert one["exchanges"][epoch]["loaded"] == []
+    moved = [name for name in SCENES
+             if owners[(0, name)] == 0 and owners[(1, name)] == 1]
+    assert moved
+    assert any((1, name, 0) in two[1]["replays"] for name in moved)
+    ours, ref = memory_files(tmp / "two" / "mem"), \
+        memory_files(tmp / "one" / "mem")
+    assert set(ours) == set(ref) and len(ref) > 100
+    for f, arrays in ref.items():
+        assert set(ours[f]) == set(arrays), f
+        for k, v in arrays.items():
+            np.testing.assert_array_equal(ours[f][k], v, err_msg=f"{f} {k}")
+
+
 def test_lone_work_outlasts_the_group_timeout(tmp_path):
     """Rank 0 works alone for 2 s, past the group's 1 s timeout, while
     rank 1 waits in ``await_lone_work``; then a collective. A rank that
@@ -729,6 +850,18 @@ def test_failing_rank_ends_the_run(runs):
     assert "Process 1 terminated" in str(error) and seconds < 60
     assert not past.exists()
     assert isinstance(late, TimeoutError) and late_seconds < 30
+
+
+def test_spawn_reports_the_first_failure(runs):
+    """Both ranks raise, rank 0 a second after rank 1, and rank 0's
+    process ends first, so the launcher sees its failure first: spawn
+    raises rank 1's error, as ProcessRaisedException."""
+    error, seconds = runs["both_fail"]
+    assert isinstance(error, torch.multiprocessing.ProcessRaisedException)
+    assert error.error_index == 1 and seconds < 60
+    assert "-- Process 1 terminated" in str(error)
+    assert "rank 1 fails first" in str(error)
+    assert "rank 0 fails" not in str(error)
 
 
 def test_launchers_from_the_environment(monkeypatch):

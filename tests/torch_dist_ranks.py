@@ -12,6 +12,7 @@ world-1 run.
 """
 
 import os
+import threading
 import time
 import types
 
@@ -174,8 +175,11 @@ CASES = {"occ": occ_case, "vis": vis_case, "depth": depth_case,
 
 
 def all_cases(inputs):
-    """Every case of ``inputs`` on this rank: {case: results}."""
-    return {name: CASES[name](x) for name, x in inputs.items()}
+    """Every case of ``inputs`` on this rank: {case: results}, and
+    "on_device": how many ranks share this rank's device."""
+    out = {name: CASES[name](x) for name, x in inputs.items()}
+    out["on_device"] = mesh.ranks_on_device()
+    return out
 
 
 def training_case(x):
@@ -210,6 +214,71 @@ def training_case(x):
             "agree": mesh.replicas_agree(*(getattr(model, n) for n in nets))}
 
 
+def memory_state(memory):
+    """A device memory's keys as (scene name, slot) -> ``key_state`` on the
+    CPU (the scene name is the memory path's parent directory)."""
+    return {(os.path.basename(os.path.dirname(p)), t): {
+        k: v.detach().cpu().clone() for k, v in memory.key_state((p, t))
+        .items()} for p, t in memory.keys()}
+
+
+def device_memory_training_case(x):
+    """``run_training`` with the device memory at a scene group over the
+    ranks: epochs 0 and 1 in one run (epoch 1 replays the slots exchanged
+    at epoch 0's end), then a resume, which hydrates the memory and finds
+    no epoch left. Returns the losses, every network's state, whether the
+    replicas agree, the memory after each epoch's exchange and after the
+    resume's hydration, each exchange's record, and each SCONE replay's
+    (epoch, scene, slot)."""
+    from macarons_tpu_torch.scene.memory import DeviceMemory
+
+    memories, exchanges, replays = {}, {}, []
+    exchange = TM.exchange_device_memory
+    sample = DeviceMemory.get_random_scene_for_scone
+    hydrate = DeviceMemory.hydrate_from_disk
+
+    def exchanged(memory, owners, verbose=False):
+        out = exchange(memory, owners, verbose)
+        memories[memory.current_epoch] = memory_state(memory)
+        exchanges[memory.current_epoch] = dict(out, loaded=[
+            (os.path.basename(os.path.dirname(p)), t)
+            for p, t in out["loaded"]])
+        return out
+
+    def scone_replay(self, rs, scene_path, *args, **kw):
+        got = sample(self, rs, scene_path, *args, **kw)
+        if got is not None:
+            replays.append((self.current_epoch, os.path.basename(
+                os.path.dirname(scene_path)), got[0]))
+        return got
+
+    def hydrated(self):
+        hydrate(self)
+        memories["hydrated"] = memory_state(self)
+
+    TM.exchange_device_memory = exchanged
+    DeviceMemory.get_random_scene_for_scone = scone_replay
+    DeviceMemory.hydrate_from_disk = hydrated
+    try:
+        for scratch in (True, False):
+            p = dict(x["params"], epochs=2, start_from_scratch=scratch)
+            model, losses = TM.run_training(
+                Params(p), weights_dir=x["weights_dir"],
+                memory_root=x["memory_root"], device="cpu", verbose=False)
+    finally:
+        TM.exchange_device_memory = exchange
+        DeviceMemory.get_random_scene_for_scone = sample
+        DeviceMemory.hydrate_from_disk = hydrate
+    nets = [n for n in ("depth", "occ", "vis")
+            if getattr(model, n) is not None]
+    return {"losses": losses, "memories": memories, "exchanges": exchanges,
+            "replays": replays,
+            "state": {n: {k: v.clone() for k, v in
+                          getattr(model, n).state_dict().items()}
+                      for n in nets},
+            "agree": mesh.replicas_agree(*(getattr(model, n) for n in nets))}
+
+
 def failing_rank(path):
     """Rank 1 raises; rank 0 waits for it in a collective."""
     if distributed.rank() == 1:
@@ -217,6 +286,32 @@ def failing_rank(path):
     mesh.all_reduce_(torch.ones(1))
     with open(path, "w") as f:
         f.write("rank 0 went past the collective")
+
+
+def wait_for(path, seconds=60.0):
+    end = time.monotonic() + seconds
+    while not os.path.exists(path) and time.monotonic() < end:
+        time.sleep(0.01)
+
+
+def both_ranks_fail(marker_dir):
+    """Rank 1 raises; rank 0 raises a second later. Rank 1's process
+    outlives rank 0's by two seconds (a non-daemon thread holds its exit),
+    so the launcher sees rank 0's end first."""
+    raised = {r: os.path.join(marker_dir, f"rank_{r}_raised")
+              for r in (0, 1)}
+    if distributed.rank() == 1:
+        def linger():
+            wait_for(raised[0])
+            time.sleep(2.0)
+
+        threading.Thread(target=linger).start()
+        open(raised[1], "w").close()
+        raise RuntimeError("rank 1 fails first")
+    wait_for(raised[1])
+    time.sleep(1.0)
+    open(raised[0], "w").close()
+    raise RuntimeError("rank 0 fails after rank 1")
 
 
 def lone_rank(seconds, timeout, store):
