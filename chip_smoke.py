@@ -11,6 +11,13 @@ Usage: python3 chip_smoke.py
                                                 with the disk memory and 1,
                                                 2 with the device memory
                                                 timed, phase_group_times)
+       python3 chip_smoke.py --restart-per-epoch
+                                               (only the train CLI one
+                                                process an epoch against one
+                                                process, phase_restart)
+       python3 chip_smoke.py --held-dir DIR    (with any of the above: the
+                                                holds keep their states in
+                                                DIR, default chiprun_out)
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. build the CUDA kernels from macarons_tpu_torch/csrc (one nvcc per
@@ -49,7 +56,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      generator state: the same poses, coverages and gains, bit for bit, and
      the sampling CDF's scan repeats; then one move's frames rasterized on
      the card and on the CPU (the plain versions): the same face ids; the
-     tiled path's time, first call and warm;
+     tiled path's time, first call and warm; then SconeOcc in bfloat16
+     (occ_compute_dtype) against float32 on the trajectory's final state at
+     its 5 decisions' cameras and candidates, in turns: the occupancy
+     field's and the decision's times, the argmaxes, the field's gap
+     (phase_bf16_decisions);
   7. depth: the default test config as users run it, on the 59,392-face
      scene: ManyDepth depth at 256x456 with 96 planes and the predicted
      SconeOcc field, random weights for the three networks from a seed, 5
@@ -74,9 +85,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      both taking the card's kNN and max-pool picks, every pick where the
      card differs from float64 a near-tie (TIE_REL; the flips excused and
      their gaps printed), the SCONE step's inputs saved under
-     chiprun_out/; the depth step at B 4 and the SCONE step
-     timed alone; then depth_pretrain: the depth pretrainer over the train
-     phase's frames at 256x456 with 96 planes, batch 4 (an epoch, a resumed
+     chiprun_out/ (--held-dir); the depth step at B 4 and the SCONE step
+     timed alone, the SCONE step also with SconeOcc in bfloat16
+     (occ_supervision_compute_dtype), its time and peak, and its occupancy
+     loss and SconeOcc gradient held to the CPU's float64 step: within 2x
+     the CPU's bfloat16 error plus STEP_REL (hold_scone_bf16, which also
+     runs it with cuBLAS's reduced bfloat16 sums); then depth_pretrain:
+     the depth pretrainer over the train phase's frames at 256x456 with 96 planes, batch 4 (an epoch, a resumed
      second, an epoch with learn_pose), each checkpoint reloaded two ways,
      the learn_pose step held like the depth step, bfloat16 convolutions
      and the batched stem against float32, step times; then syncs: one
@@ -235,7 +250,8 @@ from macarons_tpu_torch.utils.checkpoint import load_checkpoint, \
 from macarons_tpu_torch.utils.device import make_generator, resolve_device
 
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
-# What the run keeps for later: the held SCONE step's inputs.
+# Where the run keeps the states of its holds (the SCONE steps' inputs, a
+# failing depth hold's); --held-dir sets it.
 HELD_DIR = os.path.join(REPO_DIR, "chiprun_out")
 SEED = 0
 N_POSES = 5
@@ -635,7 +651,7 @@ def phase_trajectory(gen, label, levels, needs, fixture=True):
         if counts[name] <= 0:
             fail(f"the {label} trajectory never launched the {name} kernel")
     return dict(counts=counts, c_pad=cand_shapes[0][0], seq_len=params.seq_len,
-                rt=rt, model=model, call=calls[-1], traj=traj, scene=scene,
+                rt=rt, model=model, calls=calls, traj=traj, scene=scene,
                 params=params, depth_log=depth_log, depths=depths,
                 disps=disps, peak_gib=peak_gib, gains=gains_log)
 
@@ -981,6 +997,97 @@ def phase_determinism(run, state):
           f"on the card: distinct results {distinct}", flush=True)
     if distinct["cumsum_rows"] != 1:
         fail(f"cumsum_rows gave {distinct['cumsum_rows']} results")
+
+
+def real_candidates(X_cand):
+    """The candidates before pad_candidates' copies of the last one."""
+    same = (X_cand == X_cand[-1]).all(dim=-1)
+    return int(same.nonzero()[0]) + 1
+
+
+def phase_bf16_decisions(run):
+    """The occupancy field in float32 and in bfloat16
+    (``occ_compute_dtype``) on the scene-scale trajectory's final state, at
+    each of its N_POSES decisions' prediction cameras and candidates, the
+    two in turns: the field and then the whole decision (the field, the
+    scorer over its own proba and harmonics, the argmax) timed between
+    CUDA events, the scorer's generator in the same state for both types.
+    Prints each decision's times, whether the argmaxes agree, and the
+    bfloat16 field's gap from the float32 one over the predicted proxies.
+    Fails unless the bfloat16 field is finite and predicts the same
+    proxies."""
+    rt, scene, params = run["rt"], run["scene"], run["params"]
+    rt16 = MacaronsRuntime(Params(dict(params.to_dict(),
+                                       occ_compute_dtype="bfloat16")),
+                           run["model"], scene.cfg, scene.cell_table,
+                           rt.device)
+    gen = make_generator(rt.device, SEED)
+    states = []
+    for i in range(len(run["calls"])):
+        gen.manual_seed(SEED + 100 + i)
+        states.append(gen.get_state())
+
+    def decide(r, call, state):
+        cams, X_cand, pcam, *rest = call[4:]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        gen.set_state(state)
+        ev[0].record()
+        proba, mask, harm = r.occupancy_field(scene.proxy,
+                                              scene.surface_scene, pcam)
+        ev[1].record()
+        proxy = scene.proxy._replace(proba=torch.where(
+            mask[:, None], proba, scene.proxy.proba))
+        fld = scene_runtime.assemble_scene_field(proxy, proba, mask, harm)
+        gains = r.coverage_gains(*fld, cams, X_cand, pcam, *rest,
+                                 generator=gen)
+        choice = int(torch.argmax(gains[:real_candidates(X_cand)]))
+        ev[2].record()
+        torch.cuda.synchronize()
+        return (ev[0].elapsed_time(ev[1]), ev[0].elapsed_time(ev[2]),
+                choice, proba, mask)
+
+    runtimes = (("float32", rt), ("bfloat16", rt16))
+    for _, r in runtimes:  # warm-up
+        decide(r, run["calls"][0], states[0])
+    times = {name: [] for name, _ in runtimes}
+    agree, gaps = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i, (call, state) in enumerate(zip(run["calls"], states)):
+        out = {name: decide(r, call, state) for name, r in runtimes}
+        for name, o in out.items():
+            times[name].append(o[:2])
+        (f32_field, f32_ms, c32, p32, m32), (b_field, b_ms, c16, p16, m16) = \
+            out["float32"], out["bfloat16"]
+        if not (torch.equal(m32, m16) and bool(torch.isfinite(p16).all())):
+            fail(f"the bfloat16 field at decision {i} is not finite on the "
+                 "float32 field's proxies")
+        gap = (p16 - p32)[m32].abs()
+        gaps.append((float(gap.max()), float(gap.mean())))
+        agree.append(c32 == c16)
+        print(f"[bf16 decisions] decision {i}: occupancy field float32 "
+              f"{f32_field:.2f} ms, bfloat16 {b_field:.2f} ms; decision "
+              f"{f32_ms:.2f} ms, {b_ms:.2f} ms; argmax {c32} and {c16}; "
+              f"bfloat16 field from float32: max {gaps[-1][0]:.3e}, mean "
+              f"{gaps[-1][1]:.3e} over {int(m32.sum())} proxies", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pcam = run["calls"][0][6]
+    for name, r in runtimes:
+        busy, per = device_breakdown(lambda r=r: r.occupancy_field(
+            scene.proxy, scene.surface_scene, pcam), iters=2)
+        top = ", ".join(f"{short(k)} {v:.2f}" for k, v in sorted(
+            per.items(), key=lambda kv: -kv[1])[:6])
+        print(f"[bf16 decisions] occupancy field in {name}: device time "
+              f"{busy:.2f} ms a field over {len(per)} kernels "
+              f"(torch.profiler, decision 0; ms: {top})", flush=True)
+    med = {name: [float(np.median([t[j] for t in ts])) for j in (0, 1)]
+           for name, ts in times.items()}
+    print(f"[bf16 decisions] {len(agree)} decisions on the final state of "
+          f"the {scene.faces_dev.shape[0]}-face trajectory: median occupancy "
+          f"field float32 {med['float32'][0]:.2f} ms, bfloat16 "
+          f"{med['bfloat16'][0]:.2f} ms; median decision "
+          f"{med['float32'][1]:.2f} ms, {med['bfloat16'][1]:.2f} ms; argmax "
+          f"agrees in {sum(agree)} of {len(agree)}; peak {peak:.2f} GiB",
+          flush=True)
 
 
 def value_range(x):
@@ -1427,9 +1534,9 @@ def hold_depth_step(params, model, batch, alpha, seed=0, draws=None,
         if save_to is not None:
             save_depth_hold(save_to, params, model, batch, alpha, seed,
                             draws, errs)
-            rel_path = os.path.relpath(save_to, REPO_DIR)
-            msg += (f" (the held state is in {rel_path}: python3 "
-                    f"chip_smoke.py --replay-depth-pretrain-hold {rel_path})")
+            path = os.path.abspath(save_to)
+            msg += (f" (the held state is in {path}: python3 "
+                    f"chip_smoke.py --replay-depth-pretrain-hold {path})")
         fail(msg)
 
     if not np.isfinite(card["loss"]):
@@ -1455,7 +1562,7 @@ def hold_depth_step(params, model, batch, alpha, seed=0, draws=None,
     return errs
 
 
-DEPTH_HOLD_FILE = os.path.join(HELD_DIR, "depth_pretrain_hold.pt.gz")
+DEPTH_HOLD_FILE = "depth_pretrain_hold.pt.gz"  # under HELD_DIR
 
 
 def save_depth_hold(path, params, model, batch, alpha, seed, draws, errs):
@@ -1470,8 +1577,7 @@ def save_depth_hold(path, params, model, batch, alpha, seed, draws, errs):
              "seed": seed, "draws": draws, "errs": errs}
     with gzip.open(path, "wb", compresslevel=6) as f:
         torch.save(state, f)
-    print(f"[depth hold] the held state saved to "
-          f"{os.path.relpath(path, REPO_DIR)} "
+    print(f"[depth hold] the held state saved to {os.path.abspath(path)} "
           f"({os.path.getsize(path) / 2**20:.1f} MiB)", flush=True)
 
 
@@ -1625,13 +1731,84 @@ def hold_scone_step(params, model, rt, args, kw, gen, n_cells_active=5):
     its gradients of SconeOcc and SconeVis as close to the float64 ones as
     fp32_errors asks (``scone_verdict``), and one launch of the B3 backward
     kernel. Returns the errors."""
+    return held_scone_step(params, model, rt, args, kw, gen,
+                           n_cells_active)[0]
+
+
+def held_scone_step(params, model, rt, args, kw, gen, n_cells_active=5):
+    """``hold_scone_step``; returns (the errors, the state, the float64
+    run)."""
     state = scone_state(params, model, rt, args, kw, gen, n_cells_active)
     card, cpu, ref = hold_scone_runs(scone_stepper(state))
-    save_scone_step(os.path.join(HELD_DIR, "scone_step.pt.gz"), state, card)
+    path = os.path.join(HELD_DIR, "scone_step.pt.gz")
+    save_scone_step(path, state, card)
     errs, faults = scone_verdict(card, cpu, ref)
     if faults:
-        fail(f"the SCONE step on the card: {'; '.join(faults)}: {errs}")
+        fail(f"the SCONE step on the card: {'; '.join(faults)}: {errs} (the "
+             f"held state is in {os.path.abspath(path)}: "
+             f"replay_scone_step(load_scone_step(path)))")
     print_excused("train", errs)
+    return errs, state, ref
+
+
+# The bfloat16 SCONE step's card error from float64, held within BF16_SLACK
+# times the CPU's bfloat16 error, plus STEP_REL (the rule of
+# tests/test_torch_port_occ_dtype.py).
+BF16_SLACK = 2.0
+
+
+@contextlib.contextmanager
+def reduced_bf16_sums(_occ):
+    """Inside: cuBLAS may reduce bfloat16 products' split sums in
+    bfloat16 (torch's default; the port's entry points turn it off). Used
+    as scone_stepper's ``plant``, which it enters after the runtime."""
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def hold_scone_bf16(state, ref):
+    """The SCONE step of ``state`` (held_scone_step's) with SconeOcc in
+    bfloat16 (``occ_supervision_compute_dtype``), each run with its own kNN
+    and max-pool picks: on the card, on the card with cuBLAS's reduced
+    bfloat16 sums, and on the CPU, against ``ref`` (that state's float64
+    step, in float32's type). Fails unless the card's occupancy loss and
+    SconeOcc gradient are no further from float64 than BF16_SLACK times
+    the CPU's bfloat16 run, plus STEP_REL; a failing state is saved under
+    HELD_DIR. Returns the errors (relative to the float64 loss and to its
+    largest gradient)."""
+    state16 = dict(state, params=dict(
+        state["params"], occ_supervision_compute_dtype="bfloat16"))
+    step = scone_stepper(state16)
+    t0 = time.perf_counter()
+    runs = {"card": in_dtype(torch.float32, lambda: step("cuda",
+                                                         torch.float32)),
+            "card_reduced_sums": in_dtype(torch.float32, lambda: step(
+                "cuda", torch.float32, plant=reduced_bf16_sums))}
+    t1 = time.perf_counter()
+    runs["cpu"] = in_dtype(torch.float32, lambda: step("cpu", torch.float32))
+    t2 = time.perf_counter()
+    loss = ref["losses"][0]
+    errs = {name: {"occ_loss": abs(r["losses"][0] - loss) / abs(loss),
+                   "occ_grad": grad_error(r["occ"], ref["occ"])}
+            for name, r in runs.items()}
+    print(f"[train] bfloat16 SCONE step (n_cells_active 5), error from the "
+          f"CPU's float64 step: {errs}; SconeOcc's worst parameters on the "
+          f"card {worst_params(runs['card'], ref)}, on the CPU "
+          f"{worst_params(runs['cpu'], ref)} (card runs {t1 - t0:.1f} s, "
+          f"CPU run {t2 - t1:.1f} s)", flush=True)
+    over = [k for k, v in errs["card"].items()
+            if not v <= BF16_SLACK * errs["cpu"][k] + STEP_REL]
+    if over:
+        path = os.path.join(HELD_DIR, "scone_step_bf16.pt.gz")
+        save_scone_step(path, state16, runs["card"])
+        fail(f"the bfloat16 SCONE step's {over} on the card is further from "
+             f"float64 than {BF16_SLACK} times the CPU's bfloat16, plus "
+             f"STEP_REL: {errs} (the held state is in "
+             f"{os.path.abspath(path)})")
     return errs
 
 
@@ -1919,7 +2096,7 @@ def save_scone_step(path, state, card):
     with gzip.open(path, "wb", compresslevel=6) as f:
         torch.save(state, f)
     print(f"[train] the held SCONE step's inputs saved to "
-          f"{os.path.relpath(path, REPO_DIR)} "
+          f"{os.path.abspath(path)} "
           f"({os.path.getsize(path) / 2**20:.1f} MiB)", flush=True)
 
 
@@ -2134,7 +2311,7 @@ def phase_train(frames_to):
     t1 = time.perf_counter()
     # The online SCONE step with the most proxies close to the surface.
     srt, sargs, skw = max(rec.scone_calls, key=lambda c: int(c[1][4].sum()))
-    serr = hold_scone_step(p1, model, srt, sargs, skw, gen)
+    serr, sstate, sref = held_scone_step(p1, model, srt, sargs, skw, gen)
     t2 = time.perf_counter()
     print(f"[train] depth step B 1, card against CPU: {derr} "
           f"({t1 - t0:.1f} s); SCONE step (n_cells_active 5), card against "
@@ -2160,6 +2337,24 @@ def phase_train(frames_to):
           f"median of 5 between CUDA events), peak {d_peak:.2f} GiB; SCONE "
           f"step {s_ms[0]:.2f} ms ({s_ms[1]:.2f}-{s_ms[2]:.2f}), peak "
           f"{s_peak:.2f} GiB", flush=True)
+    # The SCONE step with SconeOcc in bfloat16, timed as above between two
+    # more float32 timings, then held to the float64 step.
+    p16 = Params(dict(p1.to_dict(), occ_supervision_compute_dtype="bfloat16"))
+    m16 = MacaronsModel(copy.deepcopy(model.occ), copy.deepcopy(model.vis))
+    brt = MacaronsRuntime(p16, m16, device=dev)
+    brt._tables = srt._tables
+    bopts = create_optimizers(p16, m16)
+    torch.cuda.reset_peak_memory_stats()
+    b_ms = median_ms(lambda: brt.scone_train_step(bopts["scone"], *sargs[1:],
+                                                  **dict(skw, gen=gen)))
+    b_peak = torch.cuda.max_memory_allocated() / 2**30
+    s2_ms = median_ms(lambda: trt.scone_train_step(opts["scone"], *sargs[1:],
+                                                   **dict(skw, gen=gen)))
+    print(f"[train] SCONE step with SconeOcc in bfloat16 {b_ms[0]:.2f} ms "
+          f"({b_ms[1]:.2f}-{b_ms[2]:.2f}), peak {b_peak:.2f} GiB; float32 "
+          f"again {s2_ms[0]:.2f} ms ({s2_ms[1]:.2f}-{s2_ms[2]:.2f})",
+          flush=True)
+    hold_scone_bf16(sstate, sref)
     return dict(counts=counts, n_cams=int(sargs[5].R.shape[0]),
                 seq_len=p1.seq_len, frames_dirs=frames_dirs, model=model,
                 store_bytes=stores["bytes"], move=moves[0])
@@ -3987,7 +4182,7 @@ def phase_depth_pretrain(frames_dirs, scone):
     herr = hold_depth_step(plp, MacaronsModel(scone.occ, scone.vis, lp_model),
                            {k: v[:1] for k, v in batch.items()},
                            {k: v[:1] for k, v in alpha.items()},
-                           save_to=DEPTH_HOLD_FILE)
+                           save_to=os.path.join(HELD_DIR, DEPTH_HOLD_FILE))
     print(f"[depth_pretrain] learn_pose step B 1, card against CPU: {herr} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -4883,6 +5078,124 @@ def hold_device_memory_one(ours, one, world):
              f"process's: keys differing after each epoch {memory}")
 
 
+RESTART_EPOCHS = 2
+
+
+def checkpoint_tensors(path):
+    """Every tensor of a checkpoint (the networks, the optimizers' states),
+    by its path in the checkpoint."""
+    out = {}
+
+    def walk(x, where):
+        if isinstance(x, torch.Tensor):
+            out[where] = x
+        elif isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{where}/{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{where}/{i}")
+
+    walk(torch.load(path, map_location="cpu", weights_only=False), "")
+    return out
+
+
+def memory_arrays(top):
+    """Every array of a replay memory's files, by file (and key)."""
+    out = {}
+    for d, _, names in os.walk(top):
+        for name in names:
+            path = os.path.join(d, name)
+            rel = os.path.relpath(path, top)
+            if name.endswith(".npz"):
+                with np.load(path) as z:
+                    out.update({f"{rel}:{k}": z[k] for k in z.files})
+            elif name.endswith(".npy"):
+                out[rel] = np.load(path)
+            else:
+                with open(path, "rb") as f:
+                    out[rel] = np.frombuffer(f.read(), np.uint8)
+    return out
+
+
+def phase_restart():
+    """``python -m macarons_tpu_torch.train --restart-per-epoch`` on the
+    card: the train phase's config (the 59,392-face scene, full widths,
+    TRAIN_POSES poses, a remap at TRAIN_REMAP, the DeviceMemory) on
+    perfect depth for RESTART_EPOCHS epochs, through the CLI once in one
+    process and once as one child process an epoch. Fails unless both
+    write the same checkpoint and memory files with equal metadata, every
+    memory array equal, and every checkpoint tensor bit for bit (else
+    within STEP_REL of its own largest value, the first differing named).
+    Perfect depth: ManyDepth's cuDNN convolutions need not repeat bit for
+    bit between two processes."""
+    resolve_device("cuda")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_restart_",
+                                     dir=_work_dir()) as tmp:
+        root = scene_scale_suite(os.path.join(tmp, "scenes"), SCENE_LEVELS)
+        params = train_params(root, RESTART_EPOCHS)
+        params.update(dict(start_from_scratch=True, use_perfect_depth=True))
+        cfg = os.path.join(tmp, "config.json")
+        with open(cfg, "w") as f:
+            json.dump(params.to_dict(), f)
+        walls = {}
+        for name, extra in (("one process", []),
+                            ("restarted", ["--restart-per-epoch"])):
+            run_dir = os.path.join(tmp, name.replace(" ", "_"))
+            t0 = time.perf_counter()
+            subprocess.run(
+                [sys.executable, "-m", "macarons_tpu_torch.train", "-c", cfg,
+                 "--weights-dir", os.path.join(run_dir, "w"),
+                 "--memory-root", os.path.join(run_dir, "mem")] + extra,
+                check=True, cwd=REPO_DIR)
+            walls[name] = time.perf_counter() - t0
+        one, two = (os.path.join(tmp, n) for n in ("one_process",
+                                                   "restarted"))
+        names = sorted(os.listdir(os.path.join(one, "w")))
+        if names != sorted(os.listdir(os.path.join(two, "w"))):
+            fail(f"the restarted run wrote other checkpoints: {names}")
+        worst, first = {}, None
+        for name in names:
+            a, b = (os.path.join(r, "w", name) for r in (one, two))
+            if name.endswith(".json"):
+                with open(a) as f, open(b) as g:
+                    if json.load(f) != json.load(g):
+                        fail(f"{name} differs after the restart")
+                continue
+            ta, tb = checkpoint_tensors(a), checkpoint_tensors(b)
+            if set(ta) != set(tb):
+                fail(f"{name} holds other tensors after the restart")
+            for k, x in ta.items():
+                if not torch.equal(x, tb[k]):
+                    first = first or f"{name}{k}"
+                    scale = max(float(x.abs().max()), 1e-30)
+                    worst[name] = max(worst.get(name, 0.0), float(
+                        (x.double() - tb[k].double()).abs().max()) / scale)
+        ma, mb = (memory_arrays(os.path.join(r, "mem")) for r in (one, two))
+        differ = sorted(k for k in set(ma) | set(mb)
+                        if k not in ma or k not in mb
+                        or not np.array_equal(ma[k], mb[k]))
+        with open(os.path.join(two, "w", "unvalidated_smoke.json")) as f:
+            meta = json.load(f)
+    print(f"[restart] {RESTART_EPOCHS} epochs of the train phase's config "
+          f"(perfect depth) in one process {walls['one process']:.1f} s, "
+          f"one process an epoch {walls['restarted']:.1f} s: "
+          f"{len(names)} checkpoint files "
+          + ("equal bit for bit" if first is None else
+             f"first differing at {first}, by {worst} of each tensor's "
+             f"largest value")
+          + f"; {len(ma)} memory arrays, {len(differ)} differing; losses "
+          f"{meta['train_losses']}", flush=True)
+    if meta.get("epoch") != RESTART_EPOCHS:
+        fail(f"the restarted run ended at epoch {meta.get('epoch')}")
+    if differ:
+        fail(f"the restarted run's memory differs: {differ[:5]}")
+    if first is not None and not max(worst.values()) <= STEP_REL:
+        fail(f"the restarted run's checkpoints are {worst} from one "
+             f"process's, first at {first}")
+    return walls
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -4895,7 +5208,7 @@ def main():
     worst_raster = phase_raster_kernels(gen)
     demos = phase_demos()
     small = phase_trajectory(gen, "trajectory", 0, ["sh_visibility"])
-    phase_reference(gen, small["rt"], small["model"], small["call"])
+    phase_reference(gen, small["rt"], small["model"], small["calls"][-1])
     # The trajectories' runtimes, networks and scenes go before the later
     # phases (the data-parallel ranks share the card with this process).
     del small
@@ -4906,6 +5219,7 @@ def main():
         fail("the scene-scale capture ran the two-pass composition: "
              f"{big['counts']}")
     phase_determinism(big, state)
+    phase_bf16_decisions(big)
     f9, size = phase_scene_render(big)
     phase_depth()
     rows = raster_rows(big["counts"], worst_raster, f9, size)
@@ -5005,13 +5319,23 @@ if __name__ == "__main__":
     parser.add_argument("--replay-depth-pretrain-hold", metavar="FILE",
                         help="replay a failed learn_pose depth hold from "
                         "the file the smoke saved (replay_depth_hold)")
+    parser.add_argument("--restart-per-epoch", action="store_true",
+                        help="run only the train CLI's --restart-per-epoch "
+                        "held against one process (phase_restart)")
+    parser.add_argument("--held-dir", metavar="DIR", default=HELD_DIR,
+                        help="where the holds keep their states (default "
+                        "the repo's chiprun_out)")
     args = parser.parse_args()
+    HELD_DIR = os.path.abspath(args.held_dir)
     if (args.depth_holds or args.group_times or args.demos
-            or args.data_parallel or args.replay_depth_pretrain_hold):
+            or args.data_parallel or args.replay_depth_pretrain_hold
+            or args.restart_per_epoch):
         if not torch.cuda.is_available():
             fail("CUDA is not available")
         phase_build()
-        if args.depth_holds:
+        if args.restart_per_epoch:
+            phase_restart()
+        elif args.depth_holds:
             phase_depth_holds(args.depth_holds)
         elif args.demos:
             phase_demos()

@@ -9,10 +9,16 @@ excluded scores to -1e3 before the 1/sqrt(d) scaling.
 Weights are created empty; ``init_weights`` draws them from an explicit
 ``torch.Generator`` with the JAX package's scheme (Kaiming-normal kernels,
 Xavier-normal q/k/v, torch-default uniform biases).
+
+The layers also take reduced-precision weights and inputs (SconeOcc's
+``occ_compute_dtype``) and compute as the JAX package's modules do on such
+arrays: each op in the common type of its operands, rounding where XLA
+rounds. The float32 path is untouched by this.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -22,8 +28,25 @@ import torch.nn.functional as F
 from ..ops.knn import knn_points
 
 
+# Types that XLA rounds to after every op (the float32 path keeps torch's
+# kernels).
+REDUCED = (torch.bfloat16, torch.float16)
+
+
+@functools.lru_cache(maxsize=None)
+def _gelu_constants(dtype):
+    return tuple(float(torch.tensor(c, dtype=dtype))
+                 for c in (math.sqrt(2.0 / math.pi), 0.044715))
+
+
 def gelu(x):
-    return F.gelu(x, approximate="tanh")
+    """tanh-approximated GELU. In a reduced type every step rounds, its
+    constants rounded to the type first, as ``jax.nn.gelu`` computes there
+    (torch's kernel would round once)."""
+    if x.dtype not in REDUCED:
+        return F.gelu(x, approximate="tanh")
+    c, k = _gelu_constants(x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
 
 
 def _act(use_gelu: bool):
@@ -50,7 +73,15 @@ class Dense(nn.Module):
         nn.init.uniform_(self.bias, -bound, bound, generator=gen)
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        w, b = self.weight, self.bias
+        if w.dtype != x.dtype:
+            # Flax promotes the input and the kernel to their common type.
+            dt = torch.promote_types(x.dtype, w.dtype)
+            x, w, b = x.to(dt), w.to(dt), b.to(dt)
+        if x.dtype in REDUCED:
+            # XLA rounds the product, then its sum with the bias.
+            return torch.matmul(x, w.t()) + b
+        return F.linear(x, w, b)
 
 
 def init_weights(module: nn.Module, gen: torch.Generator):
@@ -63,17 +94,39 @@ def init_weights(module: nn.Module, gen: torch.Generator):
     return module
 
 
-def layer_norm(dim: int) -> nn.LayerNorm:
-    return nn.LayerNorm(dim, eps=1e-6)
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` over inputs and parameters of any floating types:
+    Flax normalises in float32 (at least), so the parameters' gradients
+    are summed over the rows in float32 too, and returns their common
+    type."""
+
+    def forward(self, x):
+        if x.dtype == self.weight.dtype and x.dtype not in REDUCED:
+            return super().forward(x)
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        ct = torch.promote_types(dt, torch.float32)
+        return F.layer_norm(x.to(ct), self.normalized_shape,
+                            self.weight.to(ct), self.bias.to(ct),
+                            self.eps).to(dt)
+
+
+def layer_norm(dim: int) -> LayerNorm:
+    return LayerNorm(dim, eps=1e-6)
 
 
 def attention(q, k, v, mask=None):
-    """scores = q k^T; masked -> -1e3; / sqrt(d); softmax; @ v."""
+    """scores = q k^T; masked -> -1e3; / sqrt(d); softmax; @ v.
+
+    The JAX package divides by a NumPy float64 scalar, which JAX does not
+    type weakly: reduced-precision scores become float32 there, and so does
+    everything after them (the value product, the residual stream)."""
     scores = torch.matmul(q, k.transpose(-1, -2))
     if mask is not None:
         scores = scores.masked_fill(mask == 0, -1e3)
-    scores = scores / math.sqrt(q.shape[-1])
-    return torch.matmul(torch.softmax(scores, dim=-1), v)
+    scores = scores.to(torch.promote_types(scores.dtype, torch.float32)) \
+        / math.sqrt(q.shape[-1])
+    p = torch.softmax(scores, dim=-1)
+    return torch.matmul(p, v.to(p.dtype))
 
 
 class Embedding(nn.Module):

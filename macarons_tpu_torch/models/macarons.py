@@ -20,6 +20,7 @@ import torch.nn as nn
 from ..config import Params
 from ..parallel import distributed
 from ..utils.checkpoint import checkpoint_exists  # noqa: F401 (re-exported)
+from ..utils.device import compute_dtype
 from .attention import init_weights
 from .many_depth import ManyDepth
 from .scone import SconeOcc, SconeVis
@@ -43,8 +44,7 @@ def create_many_depth(params: Params, device=None) -> ManyDepth:
         n_depth=params.get("n_depth", 96),
         pose_factor=params.get("pose_factor", 100.0),
         learn_pose=params.get("learn_pose", False),
-        dtype=(None if dtype in (None, "none", "float32")
-               else getattr(torch, dtype))).to(device).eval()
+        dtype=compute_dtype(dtype)).to(device).eval()
 
 
 def create_macarons_model(params: Params, device=None) -> MacaronsModel:

@@ -108,8 +108,15 @@ def _masked_sqdist(x, pc, pc_mask, big: float):
     """pairwise_sqdist with the invalid reference points (pc_mask False)
     ranked after every valid one, lower index first: given ``big`` and the
     floats just above it in index order, they leave no tie for a query with
-    fewer than k valid points; knn_points_many returns ``big`` for them."""
+    fewer than k valid points; knn_points_many returns ``big`` for them.
+
+    Distances in a 2-byte type (bfloat16, computed in it as the JAX package
+    does) are ranked as float32, which holds them exactly: its pads stay
+    finite and distinct for clouds of up to 2**23 points, where the 2-byte
+    type's would reach inf and NaN after some 12,000."""
     d2 = pairwise_sqdist(x, pc)
+    if d2.element_size() < 4:
+        d2 = d2.float()
     if pc_mask is None:
         return d2
     n = pc.shape[-2]
@@ -128,6 +135,7 @@ def knn_points_many(queries, k: int, big: float = 1e10):
     for (_, pc, mask), (vals, idx) in zip(queries, picks):
         if mask is not None:
             vals = torch.clamp(vals, max=big)
+        vals = vals.to(pc.dtype)
         out.append((knn_gather(pc, idx),
                     torch.sqrt(torch.clamp(vals, min=0.0)), idx))
     return out

@@ -31,6 +31,7 @@ from ..ops.view_state import (
     view_harmonics_weights,
     view_space_permutation,
 )
+from ..utils.device import compute_dtype as dtype_named
 from .grid import GridConfig, GridState
 from .proxy import ProxyState
 
@@ -109,12 +110,21 @@ class OccupancyField:
     ``full_field_chunk`` (default ``max_cells``) cells; otherwise only the
     ``max_cells`` cells with most eligible proxies. Within a chunk, SconeOcc
     runs on ``cell_batch`` cells per call. Calling the field runs without
-    grad (inference); ``supervise`` is the training pass."""
+    grad (inference); ``supervise`` is the training pass.
+
+    ``compute_dtype`` (None, "none" or "float32": float32; else a floating
+    type's name, "bfloat16") runs SconeOcc on copies of its floating
+    parameters cast to that type, with its inputs cast too and its output
+    cast back to float32, as the JAX package's ``occupancy_field_impl``
+    does; the gradient reaches the float32 parameters through the casts.
+    The view harmonics returned stay float32."""
 
     def __init__(self, occ_model, n_elev: int = 7, n_azim: int = 14,
                  degree: int = 8, k_for_knn: int = 16, max_cells: int = 32,
-                 cell_batch: int = 4, full_field_chunk: Optional[int] = None):
+                 cell_batch: int = 4, full_field_chunk: Optional[int] = None,
+                 compute_dtype=None):
         self.occ_model = occ_model
+        self.compute_dtype = dtype_named(compute_dtype)
         self.n_elev, self.n_azim = n_elev, n_azim
         self.n_harmonics = degree * degree
         self.degree = degree
@@ -154,14 +164,25 @@ class OccupancyField:
         vhs = compute_view_harmonics(proxy.view_states[c_slots][..., perm],
                                      self._vh_weights(proxy.points.device))
         enough = pc_mask.sum(dim=-1) > 4 * self.k_for_knn
+        model, vh_in = self.occ_model, vhs
+        dt = self.compute_dtype
+        if dt is not None:
+            weights = {name: p.to(dt) if p.is_floating_point() else p
+                       for name, p in model.named_parameters()}
+            pcn, Xn, vh_in = pcn.to(dt), Xn.to(dt), vhs.to(dt)
+
+            def model(*args, **kw):
+                return torch.func.functional_call(
+                    self.occ_model, weights, args, kw).float()
 
         def run(pcn_b, Xn_b, vhs_b, m_b):
-            return self.occ_model(pcn_b, Xn_b, vhs_b, pc_mask=m_b)[..., 0]
+            return model(pcn_b, Xn_b, vhs_b, pc_mask=m_b)[..., 0]
 
         outs = []
         for s in range(0, M, self.cell_batch):
             args = (pcn[s:s + self.cell_batch], Xn[s:s + self.cell_batch],
-                    vhs[s:s + self.cell_batch], pc_mask[s:s + self.cell_batch])
+                    vh_in[s:s + self.cell_batch],
+                    pc_mask[s:s + self.cell_batch])
             if torch.is_grad_enabled():
                 outs.append(checkpoint(run, *args, use_reentrant=False))
             else:

@@ -265,7 +265,8 @@ class MacaronsRuntime:
                 "occ_cell_batch",
                 max(params.get("n_cell_per_occ_forward_pass", 12),
                     ff_chunk or 0)),
-            full_field_chunk=ff_chunk, **occ_kw)
+            full_field_chunk=ff_chunk,
+            compute_dtype=params.get("occ_compute_dtype"), **occ_kw)
         # The supervision pass ranks up to occ_curriculum_max_cells random
         # cells; the curriculum keeps the first n_cells_active of them.
         self.occ_curriculum_min_cells = params.get("occ_curriculum_min_cells",
@@ -277,6 +278,7 @@ class MacaronsRuntime:
             model.occ, max_cells=self.occ_curriculum_max_cells,
             cell_batch=params.get("occ_supervision_cell_batch",
                                   self.occ_curriculum_max_cells),
+            compute_dtype=params.get("occ_supervision_compute_dtype"),
             **occ_kw)
         self._tables = None
         self._bound = None
@@ -1523,7 +1525,9 @@ def run_training(params: Params, data_path: Optional[str] = None,
     """The online trainer on ``device`` ("cuda" unless the caller
     asks for the CPU). Epoch e draws from numpy's default_rng([random_seed,
     e]) and a torch generator seeded from (torch_seed, e), so a run resumed
-    at epoch e draws what one process reaching e draws. The replay memory
+    at epoch e draws what one process reaching e draws; with
+    ``max_epochs_per_process`` it stops after that many epochs, its resume
+    checkpoint written (the CLI's --restart-per-epoch). The replay memory
     is a ``DeviceMemory`` sized for a trajectory (1 + n_alpha + poses x
     interpolation steps frames, as many depths), hydrated from the memory
     directories on resume and written to them at the end of every epoch,
@@ -1617,8 +1621,21 @@ def run_training(params: Params, data_path: Optional[str] = None,
     for net in (model.depth, model.occ, model.vis):
         if net is not None:
             mesh.broadcast_module(net)
-    begin_frozen = n_freeze > 0 and start_epoch < n_freeze
     best_val_coverage = -1.0
+    if start_epoch > 0:
+        # A resumed run goes on as one process would have (the train CLI's
+        # --restart-per-epoch): its resume point was written before that
+        # epoch's depth loss could become the best (as in the JAX
+        # package), the best validation coverage is coverage_validated_'s,
+        # and a run resumed at n_freeze_epochs unfreezes there.
+        if depth_losses_per_epoch:
+            best_loss = min(best_loss, depth_losses_per_epoch[-1])
+        validated = os.path.join(weights_dir,
+                                 f"coverage_validated_{name}.json")
+        if os.path.exists(validated):
+            with open(validated) as f:
+                best_val_coverage = float(json.load(f)["val_coverage"])
+    begin_frozen = n_freeze > 0 and start_epoch <= n_freeze
 
     mem_root = memory_root or data_path
     mem_dir = params.get("memory_dir_name", "macarons_memory")
@@ -1647,7 +1664,13 @@ def run_training(params: Params, data_path: Optional[str] = None,
                                       params.get("remap_at_pose")),
                   verbose=verbose, episodes=episodes)
 
-    for epoch in range(start_epoch, params.get("epochs", 1)):
+    # max_epochs_per_process caps the epochs this process trains (the train
+    # CLI's --restart-per-epoch runs each epoch in a process of its own).
+    end_epoch = params.get("epochs", 1)
+    if params.get("max_epochs_per_process"):
+        end_epoch = min(end_epoch,
+                        start_epoch + int(params.max_epochs_per_process))
+    for epoch in range(start_epoch, end_epoch):
         t0 = time.time()
         rs = np.random.default_rng([seed, epoch])
         gen = seeded_generator(dev, torch_seed, epoch)
