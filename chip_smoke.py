@@ -11,6 +11,8 @@ Usage: python3 chip_smoke.py
                                                 with the disk memory and 1,
                                                 2 with the device memory
                                                 timed, phase_group_times)
+       python3 chip_smoke.py --memory-tiers    (only the device memory's
+                                                host tier, phase_memory_tiers)
        python3 chip_smoke.py --restart-per-epoch
                                                (only the train CLI one
                                                 process an epoch against one
@@ -98,7 +100,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      device-memory pose's episode, ring, store and depth-store calls under
      torch.cuda's sync debug mode "error", one pose's online step with
      each memory under "warn" (the synchronising calls and their sites),
-     the DeviceMemory's bytes at the default config; then train group:
+     the DeviceMemory's bytes at the default config; then memory tiers
+     (phase_memory_tiers): the placement plan for the default config's
+     memory (8 scenes x 5 slots of 403 frames) on the card as it is, at
+     n_parallel_scenes 1 and 2; two trajectories (2 poses in slot 0, the
+     epoch's end, 2 replaying poses in slot 1, perfect depth) with the
+     host tier (slot 0 in page-locked host memory), with every slot on
+     the card (the two equal bit for bit: losses, networks, memory) and
+     with the disk memory, each replaying pose timed with its syncs, peak
+     and bytes from the host; the tier's episode, store and host reads
+     under sync debug mode "error"; the default config's memory at its
+     size (34.6 GB of host slots, 8.66 GB on the card) with one replaying
+     ManyDepth pose, its peak within the plan; then train group:
      run_training at n_parallel_scenes 2 with the disk memory (the native
      loader, queued writes) on synth_00 and synth_01, each
      subdivided to 59,392 faces, as the train phase (4 group poses, a
@@ -212,6 +225,7 @@ from macarons_tpu_torch.ops.geometry import FoVCamera, look_at_view_transform
 from macarons_tpu_torch.ops.knn import knn_gather
 from macarons_tpu_torch.ops.projection import disparity_to_depth
 from macarons_tpu_torch.ops.sampling import compute_mesh_face_area, cumsum_rows
+from macarons_tpu_torch.ops.view_state import view_space_angles
 from macarons_tpu_torch.parallel import distributed, mesh
 from macarons_tpu_torch.scene.camera import (
     PoseSpace,
@@ -1816,7 +1830,8 @@ def scone_verdict(card, cpu, ref):
     """The SCONE hold's verdict on three runs of one step: ``card``
     (float32 on the card), ``cpu`` and ``ref`` (float32 and float64 on the
     CPU, both forced to the card's picks; ``ref["gaps"]`` the gaps of the
-    card's flips, as knn_picks and pool_picks record them). The card's
+    card's flips, as knn_picks, pool_picks and view_picks record them).
+    The card's
     losses within rtol 1e-3 of the CPU's, finite, and positive on the CPU;
     every flip a near-tie; its gradients held to ``ref`` by fp32_faults'
     rule against ``cpu``. Returns (errors, faults)."""
@@ -1842,19 +1857,27 @@ def scone_verdict(card, cpu, ref):
 
 def hold_scone_runs(step, tag="train"):
     """The hold's runs of ``step`` (scone_stepper's): the card in float32,
-    the CPU in float64 and float32 forced to the card's picks, and the card
+    the CPU in float64 and float32 forced to the card's picks (kNN,
+    max-pool and view-space permutation), and the card
     again; prints what sets the card's error (the rerun tells rounding
     that changes from run to run from arithmetic the card repeats; the
     parameters the largest errors sit in name their layers). Returns
     (card, cpu, ref)."""
     card = in_dtype(torch.float32, lambda: step(*RUNS[0]))
-    ref = in_dtype(torch.float64, lambda: step(*RUNS[2], card["picks"],
-                                                card["maxima"]))
-    cpu = in_dtype(torch.float32, lambda: step(*RUNS[1], card["picks"],
-                                                card["maxima"]))
+    ref = in_dtype(torch.float64, lambda: step(
+        *RUNS[2], card["picks"], card["maxima"], views=card["views"]))
+    cpu = in_dtype(torch.float32, lambda: step(
+        *RUNS[1], card["picks"], card["maxima"], views=card["views"]))
     again = in_dtype(torch.float32, lambda: step(*RUNS[0]))
-    diag = {"occ_card_rerun": grad_error(again["occ"], card["occ"]),
-            "vis_card_rerun": grad_error(again["vis"], card["vis"]),
+
+    def rerun(name):
+        # A network the step gives no gradient has no scale to read the
+        # rerun against (scone_verdict judges such a state).
+        if all(float(g.abs().max()) == 0.0 for g in card[name].values()):
+            return "no gradient"
+        return grad_error(again[name], card[name])
+
+    diag = {"occ_card_rerun": rerun("occ"), "vis_card_rerun": rerun("vis"),
             "occ_worst_params_card": worst_params(card, ref),
             "occ_worst_params_cpu": worst_params(cpu, ref),
             "knn_rows": sum(p.shape[0] for p in card["picks"]),
@@ -1869,7 +1892,8 @@ def hold_scone_runs(step, tag="train"):
 def worst_params(run, ref):
     """The three SconeOcc parameters where ``run``'s gradient is furthest
     from ``ref``'s, relative to the largest reference gradient."""
-    scale = max(float(g.abs().max()) for g in ref["occ"].values())
+    # (Absolute where the reference has no gradient.)
+    scale = max(float(g.abs().max()) for g in ref["occ"].values()) or 1.0
     err = {k: float((run["occ"][k] - g).abs().max()) / scale
            for k, g in ref["occ"].items()}
     return [(k, f"{err[k]:.2e}") for k in sorted(err, key=err.get)[-3:]]
@@ -1892,7 +1916,7 @@ def scone_stepper(state):
     nets.occ.load_state_dict(state["occ"])
     nets.vis.load_state_dict(state["vis"])
 
-    def step(dev, dt, neighbours=None, pools=None, plant=None):
+    def step(dev, dt, neighbours=None, pools=None, plant=None, views=None):
         m = MacaronsModel(net_copy(nets.occ, dev, dt),
                           net_copy(nets.vis, dev, dt), None)
         r = MacaronsRuntime(params, m, device=dev)
@@ -1904,6 +1928,7 @@ def scone_stepper(state):
                 stack.enter_context(plant(m.occ))
             kp = stack.enter_context(knn_picks(neighbours))
             pp = stack.enter_context(pool_picks(m.occ, pools))
+            vp = stack.enter_context(view_picks(views))
             losses = r.scone_train_step(opts["scone"],
                                         *_to(state["args"], dev, dt),
                                         **_to(state["kw"], dev, dt))
@@ -1913,7 +1938,7 @@ def scone_stepper(state):
                  "sh_visibility backward kernel once")
         return {"losses": [float(v) for v in losses[1:]],
                 "occ": grads_of(m.occ), "vis": grads_of(m.vis),
-                **picks_of(kp, pp)}
+                **picks_of(kp, pp, vp)}
 
     return step
 
@@ -1945,6 +1970,9 @@ def replay_scone_step(state):
             "maxima_differ_card": picks_differ(card["maxima"],
                                                ref["maxima"]),
             "maxima_differ_cpu": picks_differ(cpu["maxima"], ref["maxima"]),
+            "view_bins_differ_card": picks_differ(card["views"],
+                                                  ref["views"]),
+            "view_bins_differ_cpu": picks_differ(cpu["views"], ref["views"]),
             "occ_grad_card_float64_maxima": grad_error(pooled["occ"],
                                                        ref["occ"])}
     print(f"[replay] SCONE step, each run with its own picks: {diag}",
@@ -2057,14 +2085,73 @@ class pool_picks:
             h.remove()
 
 
-def picks_of(kp, pp):
-    """A run's kNN and max-pool picks and the gaps of those it was forced
-    to take (knn_picks ``kp``, pool_picks ``pp``)."""
+class view_picks:
+    """The view-space permutations the supervision pass takes
+    (``runtime.view_space_permutation``: each view-space bin's direction
+    binned in the world) while the block runs: ``picks``, each call's on
+    the CPU; given ``forced`` (such a list from another run), each call
+    takes those instead of its own, and ``gaps`` gets, for each bin whose
+    forced world bin differs from its own, the distance of the differing
+    angle (elevation or azimuth, the larger where both differ; this run's
+    values) from the nearest point where its bin jumps, relative to pi,
+    the magnitude float32 rounds the angles at (TIE_REL). The binning
+    (``ops.view_state._bin_directions``, as the JAX package's) adds one to
+    the truncated quotient where the floored remainder passes half a step:
+    the bin jumps there, and, for an angle at or below 0, also at each
+    multiple of the step, where the truncated and the floored quotients
+    part (a lattice camera's directions sit on such points)."""
+
+    def __init__(self, forced=None):
+        self.forced = None if forced is None else iter(forced)
+
+    def __enter__(self):
+        self.own, self.picks, self.gaps = \
+            scene_runtime.view_space_permutation, [], []
+
+        def perm(camera, n_elev, n_azim):
+            out = self.own(camera, n_elev, n_azim)
+            if self.forced is not None:
+                want = next(self.forced).to(out.device)
+                differ = want != out
+                elev, azim = view_space_angles(camera, n_elev, n_azim)
+
+                def off(angle, step, bins):
+                    rem = torch.remainder(angle, step)
+                    gap = (rem - step / 2).abs()
+                    gap = torch.where(angle <= 0, torch.minimum(
+                        gap, torch.minimum(rem, step - rem)), gap)
+                    return torch.where(bins, gap / np.pi, 0.0)
+
+                gap = torch.maximum(
+                    off(elev, np.pi / (n_elev + 1),
+                        want // n_azim != out // n_azim),
+                    off(azim, 2 * np.pi / n_azim,
+                        want % n_azim != out % n_azim))
+                self.gaps.append(gap[differ].double().cpu())
+                out = want
+            self.picks.append(out.cpu())
+            return out
+
+        scene_runtime.view_space_permutation = perm
+        return self
+
+    def __exit__(self, *exc):
+        scene_runtime.view_space_permutation = self.own
+
+
+def picks_of(kp, pp, vp=None):
+    """A run's kNN, max-pool (and, with ``vp``, view-space) picks and the
+    gaps of those it was forced to take (knn_picks ``kp``, pool_picks
+    ``pp``, view_picks ``vp``)."""
     def cat(gaps):
         return torch.cat(gaps) if gaps else torch.zeros(0)
 
-    return {"picks": kp.picks, "maxima": pp.picks,
-            "gaps": {"knn": cat(kp.gaps), "pool": cat(pp.gaps)}}
+    out = {"picks": kp.picks, "maxima": pp.picks,
+           "gaps": {"knn": cat(kp.gaps), "pool": cat(pp.gaps)}}
+    if vp is not None:
+        out["views"] = vp.picks
+        out["gaps"]["view"] = cat(vp.gaps)
+    return out
 
 
 def rows_differ(picks, ref):
@@ -2092,7 +2179,7 @@ def save_scone_step(path, state, card):
     os.makedirs(os.path.dirname(path), exist_ok=True)
     state = dict(state, card={
         k: v if k == "losses" else {n: g.float() for n, g in v.items()}
-        for k, v in card.items() if k not in ("picks", "maxima")})
+        for k, v in card.items() if k not in ("picks", "maxima", "views")})
     with gzip.open(path, "wb", compresslevel=6) as f:
         torch.save(state, f)
     print(f"[train] the held SCONE step's inputs saved to "
@@ -2628,6 +2715,345 @@ def phase_syncs():
     return out
 
 
+TIER_POSES = 2  # a replaying trajectory's poses: the first's syncs counted,
+# the second timed
+TIER_KINDS = ("tiered", "card", "disk")
+
+
+def net_weights(model):
+    """The networks' parameters and buffers, copied to the CPU."""
+    return {f"{name}.{k}": v.detach().cpu().clone()
+            for name in ("depth", "occ", "vis")
+            if getattr(model, name) is not None
+            for k, v in getattr(model, name).state_dict().items()}
+
+
+def tier_run(params, root, tmp, kind, dev):
+    """One run of phase_memory_tiers on the scene of ``root`` from the
+    config's seeds (fresh networks, optimizers and generators): a
+    trajectory of SYNC_POSES poses in slot 0 (a remap at its last), the
+    epoch's end, then TIER_POSES poses in slot 1 replaying slot 0, the
+    first under sync debug mode "warn", the second timed. ``kind``:
+    "tiered" (a DeviceMemory with its host tier: slot 0 goes to the host
+    at the epoch's end), "card" (every slot on the card) or "disk" (the
+    disk Memory). With the tier, then the episode, ring, store and
+    depth-store calls and the host tier's reads run under "error".
+    Returns the losses, weights and memory arrays (on the CPU), the
+    epoch's end split, and the timed pose's seconds, peak and host bytes
+    read."""
+    model = create_macarons_model(params, dev)
+    init_macarons_weights(model, seeded_generator(dev, params.torch_seed))
+    opts = create_optimizers(params, model)
+    rt = MacaronsRuntime(params, model, device=dev)
+    item = SceneDataset(root)[0]
+    gen = seeded_generator(dev, params.torch_seed, 0)
+    rs = np.random.default_rng(0)
+    mp = os.path.join(tmp, kind, "synth_00", "macarons_memory")
+    if kind == "disk":
+        memory, episodes = Memory([mp], n_trajectories=2), TM.HOST_EPISODES
+    else:
+        memory = DeviceMemory(
+            [mp], n_trajectories=2, max_frames=want_frames(params),
+            max_depths=want_frames(params), height=rt.H, width=rt.W,
+            zfar=params.zfar, device=dev)
+        if kind == "tiered":
+            memory.enable_host_tier()
+        episodes = TM.DEVICE_EPISODES
+    out = {"losses": []}
+
+    def trajectory(epoch, n_poses, **kw):
+        memory.current_epoch = epoch
+        scene = setup_scene(params, item, seeded_generator(
+            dev, params.torch_seed, 9), dev)
+        out["losses"].append(TM.run_trajectory(
+            rt, scene, memory, mp, opts, gen, rs, n_poses,
+            n_memory_loops=params.n_memory_loops, episodes=episodes, **kw))
+        return scene
+
+    trajectory(0, SYNC_POSES, remap_at=SYNC_POSES - 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if kind == "disk":
+        memory.flush()
+        out["move_s"], out["moved"] = 0.0, 0
+    else:
+        # The trainer's epoch end (exchange_device_memory) moves the slot
+        # and writes it from the host; the move is timed apart first.
+        out["moved"] = memory.move_to_host([(mp, 0)])
+        out["move_s"] = time.perf_counter() - t0
+        TM.exchange_device_memory(memory, {mp: 0})
+        if memory.on_host((mp, 0)) != (kind == "tiered"):
+            fail(f"memory tiers, {kind}: slot 0 "
+                 f"{'not ' if kind == 'tiered' else ''}on the host after "
+                 f"the epoch's end")
+    out["epoch_end_s"] = time.perf_counter() - t0
+
+    marks = {}
+
+    def on_phase(i, name):
+        if "start" not in marks:
+            marks["start"] = syncs.total()
+        if i == 1 and "t0" not in marks:
+            torch.cuda.set_sync_debug_mode("default")
+            marks["pose0"] = syncs.total() - marks["start"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            marks["bytes"] = getattr(memory, "host_read_bytes", 0)
+            marks["t0"] = time.perf_counter()
+
+    torch.cuda.synchronize()
+    with sync_mode("warn") as syncs:
+        scene = trajectory(1, TIER_POSES, on_phase=on_phase)
+        torch.cuda.synchronize()
+    out["pose_s"] = time.perf_counter() - marks["t0"]
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["syncs"] = marks["pose0"]
+    out["start_syncs"] = marks["start"]
+    out["host_bytes"] = getattr(memory, "host_read_bytes", 0) - marks["bytes"]
+    if (out["host_bytes"] > 0) != (kind == "tiered"):
+        fail(f"memory tiers, {kind}: {out['host_bytes']} B read from the "
+             f"host tier in the timed replaying pose")
+    out["losses"] = [{k: [float(v) for v in vs] for k, vs in ls.items()}
+                     for ls in out["losses"]]
+    out["weights"] = net_weights(model)
+    if kind != "disk":
+        out["memory"] = {f"slot {t}.{k}": v.cpu().clone()
+                         for p, t in memory.keys()
+                         for k, v in memory.key_state((p, t)).items()}
+    if kind == "tiered":
+        n0 = memory.n_frames(mp, 0)
+        try:
+            with sync_mode("error"):
+                episode_calls(rt, scene, memory, mp, gen)
+                memory.load_frame_sequence(mp, n0 - 1, 1 + rt.dcfg.n_alpha,
+                                           0)
+                memory.depth_stack(mp, 0, [0, 2, 3, 1])
+                memory.load_depth(mp, 1, 0)
+                memory.get_random_scene_for_scone(
+                    np.random.default_rng(0), mp, 4, n_loops=2,
+                    max_build=30, exclude_traj=1,
+                    n_proxy_points=scene.proxy.points.shape[0])
+        except RuntimeError as err:
+            fail(f"memory tiers: the episode, store or host tier's calls "
+                 f"synchronise with the card: {err}")
+        out["host_tier_bytes"] = memory.nbytes("host")
+    if kind == "disk":
+        memory.flush()
+    del memory, rt, opts, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tier_plan(dev):
+    """device_memory_plan for the default training config's memory (its
+    train scenes x n_memory_trajectories slots of a full trajectory), on
+    the card as it is now; printed. Its headroom is a training pose's at
+    n_parallel_scenes 1 and 2 alike (a group of 2 peaks within it:
+    phase_train_group prints its peak). Returns the plan, the slot's bytes
+    and the trajectory's frames."""
+    default = load_params(os.path.join(
+        REPO_DIR, "configs/macarons/macarons_default_training_config.json"))
+    traj = (1 + default.n_alpha
+            + default.n_poses_in_trajectory * default.n_interpolation_steps)
+    dm = DeviceMemory([f"scene_{i}" for i in range(len(
+        default.train_scenes))], n_trajectories=default.n_memory_trajectories,
+        max_frames=traj, max_depths=traj, height=default.image_height,
+        width=default.image_width, zfar=default.zfar, device=dev)
+    p = TM.device_memory_plan(dm)
+    gib = 2 ** 30
+    print(f"[memory tiers] the default training config's memory: "
+          f"{len(default.train_scenes)} scenes x "
+          f"{default.n_memory_trajectories} slots of {traj} frames of "
+          f"{default.image_height}x{default.image_width}, "
+          f"{dm.slot_nbytes()} B a slot, {p['stores'] / 1e9:.2f} GB = "
+          f"{p['stores'] / gib:.2f} GiB; one slot a scene on the card "
+          f"{p['card_stores'] / gib:.2f} GiB, the rest on the host "
+          f"{p['host_stores'] / gib:.2f} GiB; the card has "
+          f"{p['card_free'] / gib:.2f} GiB free (and cached), the host "
+          f"{p['host_free'] / gib:.2f} GiB available (MemAvailable)",
+          flush=True)
+    print(f"[memory tiers] plan at n_parallel_scenes 1 and 2: headroom "
+          f"{p['headroom'] / gib:.1f} GiB; all on the card needs "
+          f"{p['all_card'] / gib:.2f} GiB, the tier "
+          f"{p['tiered_card'] / gib:.2f} GiB on the card and "
+          f"{p['tiered_host'] / gib:.2f} GiB on the host: "
+          f"{p['placement'] or 'does not fit (raises)'}", flush=True)
+    return p, dm.slot_nbytes(), traj
+
+
+def real_size_run(params, root, tmp, dev, traj, plan):
+    """The default config's memory at its size (8 scenes x 5 slots of
+    ``traj`` frames): the host tier pinned, every key begun epoch by epoch
+    (synth_00's slot 0 a trajectory of SYNC_POSES poses, scene 1's slot 0
+    filled to capacity on the card so that its move at the epoch's end is
+    a whole slot's; the others empty), each epoch's keys moved at its end;
+    then in epoch 4, with 8 slots on the card, one pose on synth_00
+    replaying its slot 0 from the host. Fails if that pose's peak passes
+    what the plan reckons on the card (``plan["tiered_card"]``). Returns
+    the timings."""
+    model = create_macarons_model(params, dev)
+    init_macarons_weights(model, seeded_generator(dev, params.torch_seed))
+    opts = create_optimizers(params, model)
+    rt = MacaronsRuntime(params, model, device=dev)
+    item = SceneDataset(root)[0]
+    gen = seeded_generator(dev, params.torch_seed, 0)
+    rs = np.random.default_rng(0)
+    paths = [os.path.join(tmp, "real", f"scene_{i}", "macarons_memory")
+             for i in range(8)]
+    mp = paths[0]
+    slots = 5
+    out = {}
+    t0 = time.perf_counter()
+    dm = DeviceMemory(paths, n_trajectories=slots, max_frames=traj,
+                      max_depths=traj, height=rt.H, width=rt.W,
+                      zfar=params.zfar, device=dev)
+    dm.enable_host_tier()
+    out["pin_s"] = time.perf_counter() - t0
+    out["host_gb"] = dm.nbytes("host") / 1e9
+
+    def trajectory(n_poses, **kw):
+        scene = setup_scene(params, item, seeded_generator(
+            dev, params.torch_seed, 9), dev)
+        TM.run_trajectory(rt, scene, dm, mp, opts, gen, rs, n_poses,
+                          n_memory_loops=params.n_memory_loops,
+                          episodes=TM.DEVICE_EPISODES, **kw)
+
+    for e in range(slots):
+        dm.current_epoch = e
+        for p in paths[1:]:
+            store = dm.begin_trajectory(p)
+            if e == 0 and p == paths[1]:
+                g = torch.Generator(device=dev).manual_seed(1)
+                F = store.images.shape[0]
+                dm.update_store(p, store_append(
+                    store, torch.rand(store.images.shape, device=dev,
+                                      generator=g),
+                    torch.rand(store.zbuf.shape, device=dev, generator=g),
+                    torch.rand(store.mask.shape, device=dev,
+                               generator=g) > 0.5,
+                    store.R[:F], store.T[:F] + 1.0))
+                d = dm._depths[(p, 0)]
+                d.append(d.depth + 2.0, d.mask, d.error_mask, d.R, d.T)
+        if e == 0:
+            trajectory(SYNC_POSES, remap_at=SYNC_POSES - 1)
+        elif e < slots - 1:
+            dm.begin_trajectory(mp)
+        if e == slots - 1:
+            break
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        moved = dm.move_to_host([(p, e) for p in paths])
+        if e == 0:
+            out["move_s"] = time.perf_counter() - t1
+            out["moved_gb"] = moved / 1e9
+            TM.exchange_device_memory(dm, {mp: 0})
+    card = dm.nbytes("card")
+    if card != 7 * dm.slot_nbytes():
+        fail(f"memory tiers at size: {card} B on the card before the pose, "
+             f"not 7 slots")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    b0 = dm.host_read_bytes
+    t1 = time.perf_counter()
+    trajectory(1)
+    torch.cuda.synchronize()
+    out["pose_s"] = time.perf_counter() - t1
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["host_bytes"] = dm.host_read_bytes - b0
+    out["card_gb"] = dm.nbytes("card") / 1e9
+    on_card = sorted(k for k in dm.keys() if not dm.on_host(k))
+    if len(on_card) != 8 or any(t != slots - 1 for _, t in on_card):
+        fail(f"memory tiers at size: the card holds {on_card}")
+    if out["host_bytes"] <= 0:
+        fail("memory tiers at size: the replaying pose read nothing from "
+             "the host tier")
+    if out["peak_gib"] * 2 ** 30 > plan["tiered_card"]:
+        fail(f"memory tiers at size: the replaying pose peaked at "
+             f"{out['peak_gib']:.2f} GiB, past the plan's "
+             f"{plan['tiered_card'] / 2 ** 30:.2f} GiB")
+    del dm, rt, opts, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_memory_tiers():
+    """The device memory's host tier on the 59,392-face scene at the
+    default training config's widths (phase_syncs' set-up): (a) the plan
+    for the default config's memory on the card as it is; (b) the same two
+    trajectories (tier_run: SYNC_POSES poses in slot 0, the epoch's end,
+    TIER_POSES replaying poses in slot 1) with the host tier, (c) with
+    every slot on the card, which the tier must equal bit for bit
+    (losses, networks, the memory's arrays), on perfect depth (ManyDepth's
+    card gradient sums in atomics, so two of its runs differ), and with
+    the disk memory; (d) each one's replaying pose timed, its syncs and
+    peak, the tier's bytes from the host and the epoch's end; (e) the
+    default config's memory at its size with one replaying pose
+    (real_size_run, ManyDepth); (f) the tier's episode, store and host
+    reads under sync debug mode "error" (tier_run). Launch counts are set
+    to 0 before (b) and read after (e); fails unless B1 + B2, B3 and B3'
+    launched. Returns the counts and the recorded move."""
+    dev = resolve_device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    plan, slot, traj = tier_plan(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tiers_",
+                                     dir=_work_dir()) as tmp:
+        root = scene_scale_suite(os.path.join(tmp, "scenes"), SCENE_LEVELS)
+        held = train_params(root, 1)
+        held.update(dict(use_perfect_depth=True))
+        reset_counts()
+        with recorded_moves(held.n_interpolation_steps) as moves:
+            runs = {kind: tier_run(held, root, tmp, kind, dev)
+                    for kind in TIER_KINDS}
+            real = real_size_run(train_params(root, 1), root, tmp, dev,
+                                 traj, plan)
+        counts = read_counts()
+    tier, card = runs["tiered"], runs["card"]
+    for what in ("losses", "weights", "memory"):
+        a, b = tier[what], card[what]
+        same = (a == b if what == "losses" else
+                a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                             for k in b))
+        if not same:
+            differ = ([k for k in b if k not in a or not torch.equal(
+                a[k], b[k])][:5] if what != "losses" else (a, b))
+            fail(f"memory tiers: the host tier's {what} differ from every "
+                 f"slot on the card: {differ}")
+    print(f"[memory tiers] the host tier's losses, networks "
+          f"({len(card['weights'])} tensors) and memory "
+          f"({len(card['memory'])} arrays) equal every slot on the card, bit "
+          f"for bit; losses {tier['losses']}", flush=True)
+    for kind in TIER_KINDS:
+        r = runs[kind]
+        print(f"[memory tiers] {kind}: a replaying pose {r['pose_s']:.4f} s, "
+              f"peak {r['peak_gib']:.2f} GiB, {r['host_bytes'] / 1e6:.2f} MB "
+              f"from the host; the first replaying pose's synchronising "
+              f"calls {r['syncs']} (its trajectory's start "
+              f"{r['start_syncs']}); the epoch's end {r['epoch_end_s']:.4f} s "
+              f"(the move {r['move_s']:.4f} s, {r['moved'] / 1e6:.2f} MB)",
+              flush=True)
+    print(f"[memory tiers] the tier's episode, ring, store, depth-store and "
+          f"host reads ran under sync debug mode error; its host slots "
+          f"{tier['host_tier_bytes'] / 1e6:.2f} MB", flush=True)
+    print(f"[memory tiers] at the default config's size (ManyDepth): "
+          f"{real['host_gb']:.2f} GB of host slots allocated and page-locked "
+          f"in {real['pin_s']:.2f} s; a whole slot's move at the epoch's end "
+          f"{real['moved_gb']:.3f} GB in {real['move_s']:.4f} s; with "
+          f"{real['card_gb']:.2f} GB of stores on the card a replaying pose "
+          f"{real['pose_s']:.4f} s, peak {real['peak_gib']:.2f} GiB (the plan "
+          f"reckons {plan['tiered_card'] / 2 ** 30:.2f}), "
+          f"{real['host_bytes'] / 1e6:.2f} MB from the host", flush=True)
+    for name in TRAIN_KERNELS:
+        if counts[name] <= 0:
+            fail(f"memory tiers: {name} never launched: {counts}")
+    print(f"[memory tiers] launches {counts}; the phase took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return counts, moves[0]
+
+
 GROUP = 2
 GROUP_PHASES = tuple(f"{p}/{i}" for i in range(GROUP)
                      for p in ("decision", "capture")) + (
@@ -2910,7 +3336,7 @@ def hold_group_scone_step(params, model, rt, members, kw, gen,
             device=gen.device, generator=gen)])
     pns = params.get("prediction_neighborhood_size", 3.0)
 
-    def step(dev, dt, neighbours=None, pools=None):
+    def step(dev, dt, neighbours=None, pools=None, views=None):
         m = MacaronsModel(net_copy(model.occ, dev, dt),
                           net_copy(model.vis, dev, dt), None)
         r = MacaronsRuntime(params, m, device=dev)
@@ -2919,7 +3345,8 @@ def hold_group_scone_step(params, model, rt, members, kw, gen,
             scene_runtime.device_cell_tables(cfg, table, pns, dev), dev, dt))
         opts = create_optimizers(params, m)
         before = shv.sh_visibility_backward.launches
-        with knn_picks(neighbours) as kp, pool_picks(m.occ, pools) as pp:
+        with knn_picks(neighbours) as kp, pool_picks(m.occ, pools) as pp, \
+                view_picks(views) as vp:
             losses = r.parallel_scone_train_step(
                 opts["scone"], [_to(x, dev, dt) for x in members],
                 n_cells_active=n_cells_active,
@@ -2931,7 +3358,7 @@ def hold_group_scone_step(params, model, rt, members, kw, gen,
                  "backward kernel once per scene")
         return {"losses": [float(v) for v in losses[1:]],
                 "occ": grads_of(m.occ), "vis": grads_of(m.vis),
-                **picks_of(kp, pp)}
+                **picks_of(kp, pp, vp)}
 
     card, cpu, ref = hold_scone_runs(step, "train group")
     errs, faults = scone_verdict(card, cpu, ref)
@@ -5255,15 +5682,29 @@ def main():
                                worst, step, "SCONE step")
         # The device memory's decision scores every neighbour move.
         decision = (DECISION_CANDIDATES, 1, train["seq_len"])
-        rows += [scone_row, backward,
-                 kernel_row(gen, launches_at(train["counts"], decision),
-                            worst, decision, "device decision"),
+        decision_row = kernel_row(gen, launches_at(train["counts"], decision),
+                                  worst, decision, "device decision")
+        rows += [scone_row, backward, decision_row,
                  moved_row(train["counts"], train.pop("move"),
                            "train, device memory")]
         phase_depth_pretrain(train["frames_dirs"], train.pop("model"))
     finally:
         shutil.rmtree(keep)
     phase_syncs()
+    # The memory tiers phase's launches of the train path's kernels: its
+    # own move held and timed; B3's two beside the rows measured above at
+    # the same shapes in this process.
+    tiers, tiers_move = phase_memory_tiers()
+    rows += [
+        moved_row(tiers, tiers_move, "memory tiers"),
+        dict(scone_row, name=f"sh_visibility (SCONE step, memory tiers, "
+             f"{'x'.join(map(str, step))})",
+             launches=launches_at(tiers, step)),
+        dict(decision_row, name=f"sh_visibility (device decision, memory "
+             f"tiers, {'x'.join(map(str, decision))})",
+             launches=launches_at(tiers, decision)),
+        dict(backward, name="sh_visibility_backward (memory tiers)",
+             launches=tiers["sh_visibility_backward_at"].get(step, 0))]
     # The group phase's launches of the train path's kernels: its own move
     # held and timed; B3's two beside the rows measured above at the same
     # shapes in this process.
@@ -5322,6 +5763,9 @@ if __name__ == "__main__":
     parser.add_argument("--restart-per-epoch", action="store_true",
                         help="run only the train CLI's --restart-per-epoch "
                         "held against one process (phase_restart)")
+    parser.add_argument("--memory-tiers", action="store_true",
+                        help="run only the device memory's host tier "
+                        "(phase_memory_tiers)")
     parser.add_argument("--held-dir", metavar="DIR", default=HELD_DIR,
                         help="where the holds keep their states (default "
                         "the repo's chiprun_out)")
@@ -5329,11 +5773,13 @@ if __name__ == "__main__":
     HELD_DIR = os.path.abspath(args.held_dir)
     if (args.depth_holds or args.group_times or args.demos
             or args.data_parallel or args.replay_depth_pretrain_hold
-            or args.restart_per_epoch):
+            or args.restart_per_epoch or args.memory_tiers):
         if not torch.cuda.is_available():
             fail("CUDA is not available")
         phase_build()
-        if args.restart_per_epoch:
+        if args.memory_tiers:
+            phase_memory_tiers()
+        elif args.restart_per_epoch:
             phase_restart()
         elif args.depth_holds:
             phase_depth_holds(args.depth_holds)

@@ -260,11 +260,14 @@ def run_suite_eval(root: str, out_json: str, n_poses: int = 30,
     variables msgpack, e.g. ``SUITE_VIS_INIT``). ``test_scenes`` names
     the scenes to run (default all, or the first ``max_scenes``); the
     random walk's numpy generator starts afresh in every run. Returns the
-    file's contents."""
+    file's contents; an unknown policy raises a ValueError before any
+    runs."""
     from ..config import Params
-    from ..testers.scene import run_test
+    from ..testers.scene import check_policy, run_test
     from ..utils.device import resolve_device
 
+    for policy in policies:
+        check_policy(policy)
     resolve_device(device)
     out_dir = os.path.dirname(out_json) or "."
     stem = os.path.splitext(os.path.basename(out_json))[0]
@@ -376,6 +379,10 @@ def main(argv=None):
     policies = (args.policies.split(",") if args.policies
                 else ["nbv"] if args.cmd == "eval"
                 else ["nbv", "random", "carving"])
+    from ..testers.scene import check_policy
+
+    for policy in policies:
+        check_policy(policy)
     if not os.path.isdir(args.root) or not os.listdir(args.root):
         generate_suite(args.root)
     return run_suite_eval(

@@ -133,9 +133,9 @@ def get_cameras_on_sphere(n_elev: int, n_azim: int, camera_dist: float,
     return X_cam, dist, elev, azim
 
 
-def view_space_permutation(camera: FoVCamera, n_elev: int, n_azim: int):
-    """Gather indices rotating a view state into ``camera``'s frame (camera
-    batch of one). Returns (n_elev*n_azim,) int64."""
+def view_space_angles(camera: FoVCamera, n_elev: int, n_azim: int):
+    """The world elevation and azimuth of each view-space bin's direction
+    in ``camera``'s frame (camera batch of one): two (n_elev*n_azim,)."""
     elev_np, azim_np = _sphere_grid_np(n_elev, n_azim)
     dev = camera.R.device
     elev = torch.as_tensor(elev_np, dtype=torch.float32, device=dev)
@@ -144,8 +144,15 @@ def view_space_permutation(camera: FoVCamera, n_elev: int, n_azim: int):
     world = camera.view_to_world(X_ref[None])[0]
     dirs = (world - camera.camera_center()).reshape(-1, 3)
     _, ray_elev, ray_azim = get_spherical_coords(dirs)
-    return _bin_directions(ray_elev, ray_azim, n_elev, n_azim,
-                           elev_upper_clamp=n_elev // 2)
+    return ray_elev, ray_azim
+
+
+def view_space_permutation(camera: FoVCamera, n_elev: int, n_azim: int):
+    """Gather indices rotating a view state into ``camera``'s frame (camera
+    batch of one): each view-space bin's direction binned in the world
+    (``view_space_angles``). Returns (n_elev*n_azim,) int64."""
+    return _bin_directions(*view_space_angles(camera, n_elev, n_azim),
+                           n_elev, n_azim, elev_upper_clamp=n_elev // 2)
 
 
 def move_view_state_to_view_space(view_state, camera: FoVCamera,

@@ -251,6 +251,21 @@ def broadcast_grads(params: Iterable[torch.nn.Parameter], src: int):
     broadcast_tensors([p.grad for p in present], src)
 
 
+def _ranks_alike(me: int) -> int:
+    """How many ranks of the group give the same ``me`` as this one (1
+    outside a group), in one all-reduce."""
+    if world() == 1:
+        return 1
+    ids = torch.zeros(world(), dtype=torch.int64, device=distributed.device())
+    ids[rank()] = me
+    return int((all_reduce_(ids) == me).sum())
+
+
+def _host_id() -> int:
+    return int.from_bytes(hashlib.sha1(
+        socket.gethostname().encode()).digest()[:5], "little")
+
+
 def ranks_on_device() -> int:
     """How many ranks of the group run on this rank's device: more than
     one where gloo ranks share a card (1 outside a group). Each rank's
@@ -258,12 +273,14 @@ def ranks_on_device() -> int:
     if world() == 1:
         return 1
     dev = distributed.device()
-    host = int.from_bytes(hashlib.sha1(
-        socket.gethostname().encode()).digest()[:5], "little")
-    me = host * 1024 + (dev.index if dev.index is not None else 1023)
-    ids = torch.zeros(world(), dtype=torch.int64, device=dev)
-    ids[rank()] = me
-    return int((all_reduce_(ids) == me).sum())
+    return _ranks_alike(_host_id() * 1024
+                        + (dev.index if dev.index is not None else 1023))
+
+
+def ranks_on_host() -> int:
+    """How many ranks of the group run on this rank's host (1 outside a
+    group)."""
+    return _ranks_alike(_host_id())
 
 
 def _state_tensors(modules: Sequence[torch.nn.Module],

@@ -129,15 +129,22 @@ def store_append(store: FrameStore, images, zbuf, mask, R, T) -> FrameStore:
     return store._replace(n=store.n + K)
 
 
-def store_window(store: FrameStore, last: int, n: int, zfar: float) -> Dict:
+def store_window(store: FrameStore, last: int, n: int, zfar: float,
+                 device=None) -> Dict:
     """Frames [last - n + 1 .. last] as a ``create_batch_for_depth_model``
-    frames dict (views of the store). A window that would start before
-    frame 0 or end past the capacity is moved as JAX moves it (see
-    ``_clamped_start``: one starting before frame 0 comes from the end)."""
+    frames dict (views of the store; from a store in host memory, its rows
+    copied to a card ``device`` without waiting). A window that would
+    start before frame 0 or end past the capacity is moved as JAX moves it
+    (see ``_clamped_start``: one starting before frame 0 comes from the
+    end)."""
     lo = _clamped_start(last - (n - 1), n, store.images.shape[0])
     out = {k: getattr(store, k)[lo:lo + n]
            for k in ("images", "zbuf", "mask", "R", "T")}
-    out["zfar"] = torch.full((n,), float(zfar), device=store.images.device)
+    if (device is not None and not store.images.is_cuda
+            and torch.device(device).type != "cpu"):
+        out = {k: v.to(device, non_blocking=True) for k, v in out.items()}
+    out["zfar"] = torch.full((n,), float(zfar),
+                             device=out["images"].device)
     return out
 
 

@@ -33,12 +33,24 @@ data-parallel ranks every rank keeps a whole ``DeviceMemory``: at an
 epoch's end each writes the keys it captured and, after a barrier, loads
 the ones the other ranks captured (``load_from_disk(keys)``;
 ``trainers.train_macarons.exchange_device_memory``).
+
+Where every slot's stores do not fit on the card beside training, a
+``DeviceMemory`` with a host tier (``enable_host_tier``) keeps one slot a
+scene on the card, the one it captures, and the slots that replay only
+reads in host memory (page-locked when the device is CUDA): a pool of
+scenes x (slots - 1) host slots, allocated once and reused as slots
+rotate. A key moves to the host at its epoch's end while its scene has a
+free host slot (``move_to_host``; the flush then writes from that copy),
+else when its scene begins its next trajectory. Replay's reads copy the
+rows they need to the card without waiting for the copy; the stores,
+dtypes, capacities, draws and results are the card's, bit for bit.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
@@ -435,6 +447,34 @@ def _rows(x, indices: List[int]):
     return x.index_select(0, idx)
 
 
+def _runs(indices: List[int]):
+    """``indices`` as (first, length) runs of consecutive values."""
+    runs = []
+    for i in indices:
+        if runs and i == runs[-1][0] + runs[-1][1]:
+            runs[-1][1] += 1
+        else:
+            runs.append([i, 1])
+    return runs
+
+
+def _rows_to(x, indices: List[int], device):
+    """Rows ``indices`` of a host tensor x on ``device``: one copy a run of
+    consecutive rows, each a slice of x (page-locked where x is), so that
+    no copy waits for the card and none goes through pageable memory."""
+    runs = _runs(indices)
+    if len(runs) == 1:
+        a, k = runs[0]
+        return x[a:a + k].to(device, non_blocking=True)
+    out = torch.empty((len(indices),) + x.shape[1:], dtype=x.dtype,
+                      device=device)
+    at = 0
+    for a, k in runs:
+        out[at:at + k].copy_(x[a:a + k], non_blocking=True)
+        at += k
+    return out
+
+
 class DepthStore:
     """A trajectory's predicted depths on the card (for SCONE replay),
     allocated at capacity, appended in order at a host count."""
@@ -462,13 +502,101 @@ class DepthStore:
             getattr(self, name)[at:at + k] = v
         self.n += k
 
-    def gather(self, indices) -> Dict[str, torch.Tensor]:
-        """Entries ``indices``, stacked."""
+    @classmethod
+    def over(cls, tensors) -> "DepthStore":
+        """A store over ``tensors`` (its fields, allocated by the caller),
+        empty."""
+        ds = cls.__new__(cls)
+        for name, v in zip(cls.FIELDS, tensors):
+            setattr(ds, name, v)
+        ds.n = 0
+        return ds
+
+    def gather(self, indices, device=None) -> Dict[str, torch.Tensor]:
+        """Entries ``indices``, stacked: views or a gather where the store
+        lives, or from a host store copied to the card ``device``."""
         indices = [int(i) for i in indices]
-        return {k: _rows(getattr(self, k), indices) for k in self.FIELDS}
+        if device is None or self.depth.is_cuda \
+                or torch.device(device).type == "cpu":
+            return {k: _rows(getattr(self, k), indices) for k in self.FIELDS}
+        return {k: _rows_to(getattr(self, k), indices, device)
+                for k in self.FIELDS}
 
     def nbytes(self) -> int:
         return sum(getattr(self, k).nbytes for k in self.FIELDS)
+
+
+def _slot_fields(max_frames: int, max_depths: int, height: int, width: int,
+                 device):
+    """One (scene, slot)'s store tensors, as the card's stores start: a
+    ``FrameStore``'s five and a ``DepthStore``'s five."""
+    frames = init_frame_store(max_frames, height, width, device)
+    depths = DepthStore(max_depths, height, width, device)
+    return list(frames[:5]) + [getattr(depths, k) for k in DepthStore.FIELDS]
+
+
+def _pin(buffer: torch.Tensor):
+    """Page-lock ``buffer``'s memory in place (``cudaHostRegister``), so
+    that copies between it and the card neither wait nor stage; raises if
+    the card cannot."""
+    err = int(torch.cuda.cudart().cudaHostRegister(buffer.data_ptr(),
+                                                   buffer.nbytes, 0))
+    if err != 0 or not buffer.is_pinned():
+        raise RuntimeError(
+            f"cannot page-lock {buffer.nbytes / 2 ** 30:.2f} GiB of host "
+            f"memory for the device memory's host tier (cudaError {err})")
+
+
+def _unpin(buffers):
+    for b in buffers:
+        torch.cuda.cudart().cudaHostUnregister(b.data_ptr())
+
+
+class HostSlot:
+    """One (scene, slot)'s ``FrameStore`` and ``DepthStore`` in host memory,
+    carved from one buffer (page-locked by the memory on CUDA). Rows the
+    memory has not written hold the values a fresh store starts with, as
+    on the card: ``reset`` puts back those of rows a previous key wrote."""
+
+    def __init__(self, max_frames: int, max_depths: int, height: int,
+                 width: int):
+        shapes = _slot_fields(max_frames, max_depths, height, width,
+                              torch.device("meta"))
+        offsets, total = [], 0
+        for t in shapes:
+            offsets.append(total)
+            total += -(-t.nbytes // 64) * 64
+        self.buffer = torch.empty(total, dtype=torch.uint8)
+        views = [self.buffer[o:o + t.nbytes].view(t.dtype).view(t.shape)
+                 for o, t in zip(offsets, shapes)]
+        # Each field's fresh value: a number to fill, or a row (R's identity).
+        self.start = [row.flatten()[0] if bool((row == row.flatten()[0]).all())
+                      else row for row in _slot_fields(
+                          1, 1, height, width, torch.device("cpu"))]
+        self.frames = FrameStore(*views[:5], 0)
+        self.depths = DepthStore.over(views[5:])
+        # Rows at or past these hold a fresh store's values.
+        self.written = [max_frames, max_depths]
+        self.reset(0, 0)
+
+    def reset(self, n_frames: int, n_depths: int):
+        """Rows from ``n_frames`` / ``n_depths`` on back to a fresh store's
+        values (the caller writes the rows below); returns the store."""
+        for i, (fields, n) in enumerate((
+                (zip(self.frames[:5], self.start[:5]), n_frames),
+                (zip((getattr(self.depths, k) for k in DepthStore.FIELDS),
+                     self.start[5:]), n_depths))):
+            for dst, start in fields:
+                if n >= self.written[i]:
+                    continue
+                rows = dst[n:self.written[i]]
+                if start.dim():
+                    rows.copy_(start.expand_as(rows))
+                else:
+                    rows.fill_(start)  # (a broadcast copy is slow)
+            self.written[i] = n
+        self.depths.n = 0
+        return self
 
 
 class DeviceMemory:
@@ -476,7 +604,8 @@ class DeviceMemory:
     remap depths in a ``DepthStore`` per (scene, trajectory slot), both
     allocated when a trajectory begins in that slot; snapshots and poses
     kept as tensors; host counts. Slots rotate with the epoch, as the disk
-    memory's directories do."""
+    memory's directories do. With a host tier (``enable_host_tier``) a
+    scene's slots but one live in host slots (see the module's doc)."""
 
     def __init__(self, scene_memory_paths: List[str], current_epoch: int = 0,
                  n_trajectories: int = 1, max_frames: int = 512,
@@ -495,6 +624,90 @@ class DeviceMemory:
         self._surface: Dict = {}  # (path, traj) -> (GridState, params)
         self._occupancy: Dict = {}  # (path, traj) -> (ProxyState, params)
         self._poses: Dict = {}  # (path, traj) -> {epoch: (X, V, idx, n_m, n_f)}
+        self._host: Dict = {}  # (path, traj) -> HostSlot of a host-tier key
+        self._host_free: List[HostSlot] = []
+        self._host_slots = 0  # host slots allocated (0: no host tier)
+        # Bytes replay's reads copied from the host tier to the card.
+        self.host_read_bytes = 0
+
+    # -- placement -------------------------------------------------------------
+    def enable_host_tier(self):
+        """Keep each scene's slots but one in host memory: allocate the pool
+        of scenes x (slots - 1) host slots now (page-locked when the device
+        is CUDA; raises if it cannot be), before any store."""
+        if self._frames or self._host_slots:
+            raise RuntimeError("enable_host_tier before any store")
+        n = len(self.scene_memory_paths) * (self.n_trajectories - 1)
+        self._host_free = [HostSlot(self.max_frames, self.max_depths,
+                                    self.height, self.width)
+                           for _ in range(n)]
+        self._host_slots = n
+        if self.device.type == "cuda" and n:
+            # Unpinned when the memory goes, the buffers pinned so far too
+            # if pinning one raises.
+            pinned = []
+            weakref.finalize(self, _unpin, pinned)
+            for h in self._host_free:
+                _pin(h.buffer)
+                pinned.append(h.buffer)
+
+    @property
+    def host_tier(self) -> bool:
+        return self._host_slots > 0
+
+    def on_host(self, key) -> bool:
+        """Whether (scene path, slot) ``key`` lives in the host tier."""
+        return key in self._host
+
+    def _host_room(self, scene_path: str) -> bool:
+        """Whether the scene may take one more host slot (each takes at
+        most slots - 1, so the pool never runs out)."""
+        return self.host_tier and sum(
+            p == scene_path for p, _ in self._host) < self.n_trajectories - 1
+
+    def _sync(self):
+        """Wait for the card's work (before the host writes a host slot that
+        replay's copies may still read, and before the host reads what the
+        card copied into one)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _drop_stores(self, key):
+        self._frames.pop(key, None)
+        self._depths.pop(key, None)
+        slot = self._host.pop(key, None)
+        if slot is not None:
+            self._host_free.append(slot)
+
+    def move_to_host(self, keys) -> int:
+        """Move each card key of ``keys`` whose scene has room in the host
+        tier to a host slot: its filled rows copied, its card stores freed.
+        Returns the bytes copied."""
+        nbytes, synced = 0, False
+        for key in keys:
+            if key not in self._frames or key in self._host \
+                    or not self._host_room(key[0]):
+                continue
+            if not synced:
+                self._sync()
+                synced = True
+            st, ds = self._frames[key], self._depths[key]
+            nf, nd = min(st.n, self.max_frames), min(ds.n, self.max_depths)
+            slot = self._host_free.pop().reset(nf, nd)
+            for dst, src in zip(slot.frames[:5], st[:5]):
+                dst[:nf].copy_(src[:nf], non_blocking=True)
+                nbytes += dst[:nf].nbytes
+            for k in DepthStore.FIELDS:
+                dst = getattr(slot.depths, k)[:nd]
+                dst.copy_(getattr(ds, k)[:nd], non_blocking=True)
+                nbytes += dst.nbytes
+            slot.depths.n = ds.n
+            self._frames[key] = slot.frames._replace(n=st.n)
+            self._depths[key] = slot.depths
+            self._host[key] = slot
+        if synced:
+            self._sync()
+        return nbytes
 
     def current_trajectory(self) -> int:
         return self.current_epoch % self.n_trajectories
@@ -504,23 +717,35 @@ class DeviceMemory:
                 self.current_trajectory() if traj is None else traj)
 
     # -- frames ---------------------------------------------------------------
-    def _new_stores(self, key):
-        """Empty frame and depth stores for ``key`` (the old ones are
-        released first, so the allocator can reuse their memory)."""
-        self._frames.pop(key, None)
-        self._depths.pop(key, None)
+    def _new_stores(self, key, host_rows=None):
+        """Empty frame and depth stores for ``key``: on the card, or with
+        ``host_rows`` (the frame and depth rows the caller will write) in a
+        free host slot (the old ones are released first, so the allocator
+        can reuse their memory)."""
+        self._drop_stores(key)
+        if host_rows is not None:
+            self._sync()
+            slot = self._host[key] = self._host_free.pop().reset(*host_rows)
+            self._frames[key], self._depths[key] = slot.frames, slot.depths
+            return
         self._frames[key] = init_frame_store(self.max_frames, self.height,
                                              self.width, self.device)
         self._depths[key] = DepthStore(self.max_depths, self.height,
                                        self.width, self.device)
 
     def begin_trajectory(self, scene_path: str) -> FrameStore:
-        """Fresh stores for the current slot (its earlier trajectory and
-        snapshots are dropped, as its directory is overwritten on disk)."""
+        """Fresh stores on the card for the current slot (its earlier
+        trajectory and snapshots are dropped, as its directory is
+        overwritten on disk). With a host tier, the scene's slot still on
+        the card goes to the host slot this frees."""
         key = self._key(scene_path, None)
-        self._new_stores(key)
+        self._drop_stores(key)
         self._surface.pop(key, None)
         self._occupancy.pop(key, None)
+        if self.host_tier:
+            self.move_to_host([k for k in self._frames
+                               if k[0] == scene_path and k not in self._host])
+        self._new_stores(key)
         return self._frames[key]
 
     def store(self, scene_path: str, traj: Optional[int] = None) -> FrameStore:
@@ -538,9 +763,15 @@ class DeviceMemory:
     def load_frame_sequence(self, scene_path: str, last_frame_nb: int, n: int,
                             traj: Optional[int] = None) -> Dict:
         """``Memory.load_frame_sequence`` as views of the store (keys
-        images, zbuf, mask, R, T, zfar)."""
-        return store_window(self.store(scene_path, traj), last_frame_nb, n,
-                            self.zfar)
+        images, zbuf, mask, R, T, zfar), or from a host slot its rows
+        copied to the card."""
+        key = self._key(scene_path, traj)
+        out = store_window(self._frames[key], last_frame_nb, n, self.zfar,
+                           self.device)
+        if key in self._host:
+            self.host_read_bytes += sum(v.nbytes for k, v in out.items()
+                                        if k != "zfar")
+        return out
 
     # -- depths (predicted, for SCONE replay) ---------------------------------
     def save_depth(self, scene_path: str, frame_nb: int, depth, mask,
@@ -558,7 +789,11 @@ class DeviceMemory:
         return self.depth_stack(scene_path, traj, [frame_nb])
 
     def depth_stack(self, scene_path: str, traj: Optional[int], indices):
-        return self._depths[self._key(scene_path, traj)].gather(indices)
+        key = self._key(scene_path, traj)
+        out = self._depths[key].gather(indices, self.device)
+        if key in self._host:
+            self.host_read_bytes += sum(v.nbytes for v in out.values())
+        return out
 
     # -- scene snapshots -------------------------------------------------------
     def save_surface_scene(self, scene_path: str, state: GridState,
@@ -613,66 +848,85 @@ class DeviceMemory:
                              max_build, exclude_traj, n_proxy_points)
 
     # -- persistence -----------------------------------------------------------
-    def nbytes(self) -> int:
-        """Bytes of the frame and depth stores allocated now."""
-        return (sum(sum(t.nbytes for t in st[:5])
-                    for st in self._frames.values())
-                + sum(ds.nbytes() for ds in self._depths.values()))
+    def nbytes(self, tier: Optional[str] = None) -> int:
+        """Bytes allocated now: of the frame and depth stores on the card
+        (``tier`` "card"), of the host tier's slots, free ones included
+        ("host"), or both (None)."""
+        card = (sum(sum(t.nbytes for t in st[:5])
+                    for key, st in self._frames.items()
+                    if key not in self._host)
+                + sum(ds.nbytes() for key, ds in self._depths.items()
+                      if key not in self._host))
+        host = self._host_slots * self.slot_nbytes()
+        return {"card": card, "host": host, None: card + host}[tier]
+
+    def slot_nbytes(self) -> int:
+        """Bytes of one (scene, slot)'s frame and depth stores (built on
+        the meta device: nothing allocated)."""
+        return sum(t.nbytes for t in _slot_fields(
+            self.max_frames, self.max_depths, self.height, self.width,
+            torch.device("meta")))
 
     def full_nbytes(self) -> int:
         """Bytes of the frame and depth stores once every (scene, slot) has
-        begun a trajectory (built on the meta device: nothing allocated)."""
-        meta = torch.device("meta")
-        frames = init_frame_store(self.max_frames, self.height, self.width,
-                                  meta)
-        depths = DepthStore(self.max_depths, self.height, self.width, meta)
-        slot = sum(t.nbytes for t in frames[:5]) + depths.nbytes()
-        return len(self.scene_memory_paths) * self.n_trajectories * slot
+        begun a trajectory, whichever tier holds them."""
+        return (len(self.scene_memory_paths) * self.n_trajectories
+                * self.slot_nbytes())
 
     def hydrate_from_disk(self):
         """Load a run's memory files into the stores (resume): every
-        (scene, slot) key, as ``load_from_disk`` loads it."""
+        (scene, slot) key, as ``load_from_disk`` loads it, each scene's
+        current slot last (with a host tier it is the one left on the
+        card)."""
+        now = self.current_trajectory()
         self.load_from_disk([(path, t) for path in self.scene_memory_paths
-                             for t in range(self.n_trajectories)])
+                             for t in sorted(range(self.n_trajectories),
+                                             key=lambda t: t == now)])
 
     def load_from_disk(self, keys) -> int:
         """Load each (scene path, slot) key of ``keys`` from its files (those
         that ``flush_to_disk`` writes): its frames and depths up to the
         capacities, and its snapshots. A key's stores and snapshots are
         replaced, never appended to; a key without files is left empty.
-        Returns the bytes of the arrays read."""
+        With a host tier a key lands in a host slot while its scene has
+        room there, else on the card. Returns the bytes of the arrays
+        read."""
         mem = Memory(self.scene_memory_paths, self.current_epoch,
                      self.n_trajectories)
         return sum(self._load_key(mem, path, t) for path, t in keys)
 
     def _load_key(self, mem: Memory, path: str, t: int) -> int:
-        key, dev, nbytes = (path, t), self.device, 0
+        key, nbytes = (path, t), 0
 
-        def tensors(arrays):
+        def tensors(arrays, dev):
             nonlocal nbytes
             nbytes += sum(np.asarray(a).nbytes for a in arrays)
             return (torch.as_tensor(a, device=dev) for a in arrays)
 
-        for held in (self._frames, self._depths, self._surface,
-                     self._occupancy):
+        self._drop_stores(key)
+        for held in (self._surface, self._occupancy):
             held.pop(key, None)
         n = min(mem.n_frames(path, t), self.max_frames)
         n_d = min(mem.n_depths(path, t), self.max_depths)
         if n or n_d:
-            self._new_stores(key)
+            self._new_stores(key, (n, n_d) if self._host_room(path)
+                             else None)
+        dev = self._frames[key].images.device if n or n_d else None
         if n:
             fr = mem.load_frame_sequence(path, n - 1, n, t)
             self._frames[key] = store_append(self._frames[key], *tensors(
-                [fr[k] for k in ("images", "zbuf", "mask", "R", "T")]))
+                [fr[k] for k in ("images", "zbuf", "mask", "R", "T")], dev))
         for i in range(n_d):
             d = mem.load_depth(path, i, t)
             self._depths[key].append(*tensors(
-                [d[k] for k in DepthStore.FIELDS]))
+                [d[k] for k in DepthStore.FIELDS], dev))
         if mem._has_snapshots(path, t):
             state, extra = mem.load_surface_scene(path, t)
-            self._surface[key] = (GridState(*tensors(state)), extra)
+            self._surface[key] = (GridState(*tensors(state, self.device)),
+                                  extra)
             state, extra = mem.load_occupancy_field(path, t)
-            self._occupancy[key] = (ProxyState(*tensors(state)), extra)
+            self._occupancy[key] = (ProxyState(*tensors(state, self.device)),
+                                    extra)
         return nbytes
 
     def keys(self) -> List:
@@ -681,7 +935,8 @@ class DeviceMemory:
 
     def key_state(self, key) -> Dict[str, torch.Tensor]:
         """What replay can read of ``key``: its filled frame and depth rows
-        and its snapshots' states, by name (the counts are the rows)."""
+        (in the tier the key lives in) and its snapshots' states, by name
+        (the counts are the rows)."""
         out = {}
         n = self.n_frames(*key)
         if n:
@@ -710,7 +965,8 @@ class DeviceMemory:
         hold, are removed, so that its files hold what the memory holds
         (``load_from_disk`` gives it back). Each key's writes are waited
         for before the next one's are queued, so the host holds at most
-        one slot's copies at a time."""
+        one slot's copies at a time. A host-tier key is written from its
+        host slot, without another copy."""
         mem = Memory(self.scene_memory_paths, self.current_epoch,
                      self.n_trajectories)
         if keys is None:
@@ -720,16 +976,21 @@ class DeviceMemory:
         for path, t in keys:
             key = (path, t)
             held = key in self._frames or key in self._depths
+            # A host slot's rows go to the writers as they are (numpy views):
+            # each key's writes land before the next key's are queued.
+            rows = ((lambda x: x.numpy()) if key in self._host
+                    else (lambda x: x))
             n = self.n_frames(path, t)
             if n:
                 st = self._frames[key]
-                frames = [x[:n] for x in st[:5]]
+                frames = [rows(x[:n]) for x in st[:5]]
                 nbytes += sum(x.nbytes for x in frames)
                 mem.save_frame_batch(path, 0, *frames, self.zfar, traj=t)
             ds = self._depths.get(key)
             n_d = 0 if ds is None else ds.n
             for i in range(n_d):
-                depth = [getattr(ds, k)[i:i + 1] for k in DepthStore.FIELDS]
+                depth = [rows(getattr(ds, k)[i:i + 1])
+                         for k in DepthStore.FIELDS]
                 nbytes += sum(x.nbytes for x in depth)
                 mem.save_depth(path, i, *depth, traj=t)
             if key in self._surface:

@@ -76,6 +76,17 @@ def _depth_step(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
                    score_threshold=params.get("score_threshold", 1.0))
 
 
+# The tester's policies (compute_trajectory's ``policy``).
+POLICIES = ("nbv", "random", "carving")
+
+
+def check_policy(policy: str):
+    """Raise a ValueError for a policy the tester does not have."""
+    if policy not in POLICIES:
+        raise ValueError(f"unknown policy {policy!r}: the tester's policies "
+                         f"are {', '.join(POLICIES)}")
+
+
 def compute_trajectory(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
                        memory_path: str, gen: torch.Generator, rs, n_poses: int,
                        surface_epsilon: float, use_collision: bool = False,
@@ -92,7 +103,9 @@ def compute_trajectory(rt: MacaronsRuntime, scene: SceneState, memory: Memory,
     boundaries: "decision" (depth + mapping), "field" (occupancy field),
     "score" (candidates and their gains), "capture" (move, capture, true
     coverage and mapping) and "done".
-    Returns the results dict of the trajectory."""
+    Returns the results dict of the trajectory; an unknown ``policy``
+    raises a ValueError before anything runs."""
+    check_policy(policy)
     params = rt.params
     dev = rt.device
     cam = scene.camera
@@ -223,7 +236,9 @@ def run_test(params: Params, data_path: Optional[str] = None,
     init seeded by ``torch_seed``; ``vis_weights_path`` (a SconeVis
     variables msgpack) then replaces SconeVis's. With ``export_results``,
     each trajectory's camera curves and surface go under
-    ``results_dir/exports/<scene>/start_<i>_{cameras.json,surface.ply}``."""
+    ``results_dir/exports/<scene>/start_<i>_{cameras.json,surface.ply}``.
+    An unknown ``policy`` raises a ValueError before anything runs."""
+    check_policy(policy)
     dev = resolve_device(device)
     data_path = data_path or params.get("dataset_path") or params.data_path
     rs = np.random.default_rng(params.get("random_seed", 42))

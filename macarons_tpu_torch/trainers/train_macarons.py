@@ -28,7 +28,10 @@ neither the pose loop nor the memory asks the card for a number until the
 epoch ends: the memory is then written to disk once and the losses are
 read. Over data-parallel ranks every rank keeps a whole ``DeviceMemory``
 and the ranks exchange the slots they captured at each epoch's end
-(``exchange_device_memory``). The same trajectory function and step serve
+(``exchange_device_memory``). Where every slot does not fit on the card
+beside training, each scene's slots but the one it captures live in
+page-locked host memory and replay copies its rows to the card
+(``device_memory_plan``). The same trajectory function and step serve
 both memories: each
 memory comes with an episode adapter (``HOST_EPISODES`` for the disk memory,
 the host ``Camera``'s; ``DEVICE_EPISODES`` for the device one), which
@@ -1435,22 +1438,28 @@ def exchange_device_memory(memory: DeviceMemory, owners: Dict[str, int],
     (``owners``: scene memory path -> rank; the memory's other keys are on
     disk since their own epoch or the resume), the ranks meet, and each
     loads the keys of the others from those files, so every rank holds
-    what one process's memory holds. Returns the exchange's seconds, the
-    bytes this rank wrote and read, and the keys it loaded."""
+    what one process's memory holds. With a host tier the captured keys
+    first move to their host slots where their scenes have room, and are
+    written from there (one copy from the card serves both); the loaded
+    keys land in the host tier likewise. Returns the exchange's seconds,
+    the bytes this rank moved to the host, wrote and read, and the keys
+    it loaded."""
     t0 = time.perf_counter()
     me, slot = mesh.rank(), memory.current_trajectory()
+    mine = [(p, slot) for p, r in owners.items() if r == me]
     theirs = [(p, slot) for p, r in owners.items() if r != me]
-    written = memory.flush_to_disk(
-        [(p, slot) for p, r in owners.items() if r == me])
+    moved = memory.move_to_host(mine)
+    written = memory.flush_to_disk(mine)
     # Every rank's files are written before any rank reads them.
     distributed.barrier()
     read = memory.load_from_disk(theirs)
-    out = {"seconds": time.perf_counter() - t0, "written": written,
-           "read": read, "loaded": theirs}
+    out = {"seconds": time.perf_counter() - t0, "moved": moved,
+           "written": written, "read": read, "loaded": theirs}
     if verbose:
         print(f"epoch {memory.current_epoch}, rank {me}: device memory "
-              f"exchange {out['seconds']:.2f} s, {written / 1e9:.3f} GB "
-              f"written, {read / 1e9:.3f} GB read ({len(theirs)} slots)")
+              f"exchange {out['seconds']:.2f} s, {moved / 1e9:.3f} GB "
+              f"moved to the host, {written / 1e9:.3f} GB written, "
+              f"{read / 1e9:.3f} GB read ({len(theirs)} slots)")
     return out
 
 
@@ -1481,39 +1490,91 @@ def sync_training_state(rt: "MacaronsRuntime", opts: Dict, src: int,
 # The card's bytes a training pose takes beside the models and the device
 # memory's stores: the default training config's pose peaked at 34-37 GiB
 # on an H100 (PERF.md, section 5), models and the smoke's small stores
-# included.
+# included; a scene group of 2 at 33.68 GiB.
 DEVICE_MEMORY_HEADROOM_GIB = 36.0
 
 
-def check_device_memory_fits(memory: DeviceMemory,
-                             headroom_gib: float = DEVICE_MEMORY_HEADROOM_GIB):
-    """Raise, before anything is stored, if ``memory``'s stores for every
-    (scene, slot) plus ``headroom_gib`` GiB for training, times the ranks
-    that share this card (``mesh.ranks_on_device``: each holds a whole
-    memory), exceed what the card has free now (its free bytes and this
-    rank's allocator's cached ones). The stores are allocated a slot at a
-    time as trajectories begin, so without this a run that does not fit
-    fails epochs in. Nothing is checked off the card."""
+def host_memory_available() -> int:
+    """The bytes this host can still give (``MemAvailable`` of
+    /proc/meminfo)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/meminfo has no MemAvailable")
+
+
+def device_memory_plan(memory: DeviceMemory,
+                       headroom_gib: float = DEVICE_MEMORY_HEADROOM_GIB
+                       ) -> Dict:
+    """Where ``memory``'s stores can live beside training, decided before
+    anything is stored, with the figures it was decided on. "card": every
+    (scene, slot) on the card, when the stores plus ``headroom_gib`` GiB
+    for training, times the ranks that share this card
+    (``mesh.ranks_on_device``: each holds a whole memory), fit what the
+    card has free now (its free bytes and this rank's allocator's cached
+    ones). Else "host tier": one slot a
+    scene on the card and the others in host slots, when that fits the
+    card so and the host slots of every rank on this host
+    (``mesh.ranks_on_host``) fit its available memory. Else None. Off the
+    card nothing is asked: "card"."""
     dev = memory.device
     if dev.type != "cuda":
-        return
-    sharing = mesh.ranks_on_device()
+        return {"placement": "card"}
+    sharing, host_ranks = mesh.ranks_on_device(), mesh.ranks_on_host()
     free, _ = torch.cuda.mem_get_info(dev)
     free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
-    need = memory.full_nbytes()
     headroom = int(headroom_gib * 2 ** 30)
-    if sharing * (need + headroom) > free:
-        on_card = f" for each of the {sharing} ranks on the card" \
-            if sharing > 1 else ""
-        raise RuntimeError(
-            f"the device memory needs {need / 2 ** 30:.2f} GiB for "
-            f"{len(memory.scene_memory_paths)} scenes x "
-            f"{memory.n_trajectories} trajectory slots of "
-            f"{memory.max_frames} frames, and training about "
-            f"{headroom_gib:.1f} GiB more{on_card}, but "
-            f"the card has {free / 2 ** 30:.2f} GiB free: set "
-            f'"device_memory": false to keep the replay memory on disk, or '
-            f"train fewer scenes, slots or poses")
+    scenes, slot = len(memory.scene_memory_paths), memory.slot_nbytes()
+    plan = {"sharing": sharing, "host_ranks": host_ranks, "card_free": free,
+            "headroom": headroom, "stores": memory.full_nbytes(),
+            "card_stores": scenes * slot,
+            "host_stores": scenes * (memory.n_trajectories - 1) * slot,
+            "host_free": host_memory_available()}
+    plan["all_card"] = sharing * (plan["stores"] + headroom)
+    plan["tiered_card"] = sharing * (plan["card_stores"] + headroom)
+    plan["tiered_host"] = host_ranks * plan["host_stores"]
+    if plan["all_card"] <= free:
+        plan["placement"] = "card"
+    elif (memory.n_trajectories > 1 and plan["tiered_card"] <= free
+          and plan["tiered_host"] <= plan["host_free"]):
+        plan["placement"] = "host tier"
+    else:
+        plan["placement"] = None
+    return plan
+
+
+def check_device_memory_fits(memory: DeviceMemory,
+                             headroom_gib: float = DEVICE_MEMORY_HEADROOM_GIB
+                             ) -> str:
+    """``device_memory_plan``'s placement ("card" or "host tier"); raises
+    if neither fits, naming the figures. The stores are allocated a slot
+    at a time as trajectories begin, so without this a run that does not
+    fit fails epochs in."""
+    plan = device_memory_plan(memory, headroom_gib)
+    if plan["placement"] is not None:
+        return plan["placement"]
+    gib = 2 ** 30
+    sharing = plan["sharing"]
+    on_card = f" for each of the {sharing} ranks on the card" \
+        if sharing > 1 else ""
+    on_host = f" for each of the {plan['host_ranks']} ranks on this host" \
+        if plan["host_ranks"] > 1 else ""
+    tiered = (
+        f"; with one slot a scene on the card it needs "
+        f"{plan['card_stores'] / gib:.2f} GiB there{on_card} and "
+        f"{plan['host_stores'] / gib:.2f} GiB of host memory{on_host}, "
+        f"and the host has {plan['host_free'] / gib:.2f} GiB available"
+        if memory.n_trajectories > 1 else "")
+    raise RuntimeError(
+        f"the device memory needs {plan['stores'] / gib:.2f} GiB for "
+        f"{len(memory.scene_memory_paths)} scenes x "
+        f"{memory.n_trajectories} trajectory slots of "
+        f"{memory.max_frames} frames, and training about "
+        f"{plan['headroom'] / gib:.1f} GiB more{on_card}, but "
+        f"the card has {plan['card_free'] / gib:.2f} GiB free{tiered}: set "
+        f'"device_memory": false to keep the replay memory on disk, or '
+        f"train fewer scenes, slots or poses")
 
 
 def run_training(params: Params, data_path: Optional[str] = None,
@@ -1532,8 +1593,10 @@ def run_training(params: Params, data_path: Optional[str] = None,
     interpolation steps frames, as many depths), hydrated from the memory
     directories on resume and written to them at the end of every epoch,
     unless ``device_memory`` is false: then a disk ``Memory`` per epoch.
-    A device memory whose stores would not fit on the card beside training
-    raises at once (``check_device_memory_fits``). Validation always uses a
+    Where every slot's stores would not fit on the card beside training,
+    each scene's older slots go to a host tier (``device_memory_plan``);
+    where even that does not fit, the run raises at once
+    (``check_device_memory_fits``). Validation always uses a
     disk ``Memory``. ``on_phase``, if given, is
     handed to every training trajectory (see run_trajectory) as
     ``on_phase(epoch, pose_i, name)``. Each scene of an epoch draws its
@@ -1654,7 +1717,12 @@ def run_training(params: Params, data_path: Optional[str] = None,
             height=params.get("image_height", 256),
             width=params.get("image_width", 456),
             zfar=params.get("zfar", 750.0), device=dev)
-        check_device_memory_fits(dmem)
+        placement = check_device_memory_fits(dmem)
+        if placement == "host tier":
+            dmem.enable_host_tier()
+        if verbose:
+            print(f"device memory: {dmem.full_nbytes() / 2 ** 30:.2f} GiB of "
+                  f"stores, placed: {placement}")
         episodes = DEVICE_EPISODES
         if not params.get("start_from_scratch", True):
             dmem.hydrate_from_disk()

@@ -2,7 +2,7 @@
 on sound states, with the gaps of every flip it excuses, and on two
 planted faults that it must refuse.
 
-Usage: python3 scone_holds.py N [--first-seed S]
+Usage: python3 scone_holds.py N [--first-seed S] [--only I,J,...]
 
 Trains one epoch of the default training config on synth_00 subdivided to
 59,392 faces, holds N SCONE steps of it (draws from seeds SEED + S on) on
@@ -24,11 +24,11 @@ import time
 import numpy as np
 import torch
 
-from chip_smoke import BUILD_DIR, RUNS, SCENE_LEVELS, SEED, TIE_REL, \
-    StepRecorder, _work_dir, fail, gap_summary, hold_scone_runs, in_dtype, \
-    load_scone_step, phase_build, print_excused, replay_scone_step, \
-    scene_scale_suite, scone_state, scone_stepper, scone_verdict, shv, \
-    train_params
+from chip_smoke import BUILD_DIR, HELD_DIR, RUNS, SCENE_LEVELS, SEED, \
+    TIE_REL, StepRecorder, _work_dir, fail, gap_summary, hold_scone_runs, \
+    in_dtype, load_scone_step, phase_build, print_excused, \
+    replay_scone_step, save_scone_step, scene_scale_suite, scone_state, \
+    scone_stepper, scone_verdict, shv, train_params
 from macarons_tpu_torch.trainers.train_macarons import run_training
 from macarons_tpu_torch.utils.device import make_generator, resolve_device
 
@@ -41,14 +41,21 @@ WRONG_GRADIENT_REL = 1e-3
 FIRST_SEED = 300
 
 
-def phase_scone_holds(n, first=FIRST_SEED):
+def phase_scone_holds(n, first=FIRST_SEED, only=None):
     """The SCONE hold alone, ``n`` times on sound states, then on two
     planted faults. One training epoch as phase_depth_holds' (4 poses on
     the 59,392-face scene, at the config's seeds) gives the trained
     networks and its online SCONE steps' calls; hold i takes call i mod 4
     with its draws (the cell noise, the Monte-Carlo sample) from seed
     SEED + ``first`` + i.
-    Every hold must pass; the gaps of every flip are printed. Then on hold 0's state: a wrong pick (planted_pick: the
+    Every hold must pass; the gaps of every flip are printed; the first
+    state that fails is saved under chip_smoke.HELD_DIR as
+    scone_hold_<seed>.pt.gz, and the holds go on to count every state. A
+    state where a network has no float64 gradient at all cannot be held
+    by the relative rule: it is counted apart, and fails unless the card's
+    and the CPU's gradients of that network are zero too. ``only``: the
+    holds (0-based) to run of the n, each with its own call and draws.
+    Then on the first held state: a wrong pick (planted_pick: the
     global transformer's first maximum moved to its column's smallest
     value, a gap of at least PLANT_TIE_RELS x TIE_REL) and a wrong gradient
     (scaled_backward) must each fail the hold. Then a saved state, if one
@@ -64,42 +71,77 @@ def phase_scone_holds(n, first=FIRST_SEED):
                 tmp, "weights"), memory_root=os.path.join(tmp, "mem"),
                 device=dev, verbose=False, on_phase=rec.on_phase)
     calls = rec.scone_calls
-    gaps = {"knn": [], "pool": []}
+    gaps = {"knn": [], "pool": [], "view": []}
+    failed, unreadable, held = [], [], []
     for i in range(n):
+        if only is not None and i not in only:
+            continue
         rt, args, kw = calls[i % len(calls)]
         t0 = time.perf_counter()
         state = scone_state(params, model, rt, args, kw,
                             make_generator(dev, SEED + first + i))
         tag = f"scone holds {i + 1}/{n}"
         card, cpu, ref = hold_scone_runs(scone_stepper(state), tag)
+        flat = no_gradient(card, cpu, ref)
+        if flat:
+            # The rule is relative to the float64 gradient: a network
+            # without one cannot be held, only seen to be zero everywhere.
+            print(f"[scone holds] hold {i + 1}/{n} (seed {SEED + first + i}) "
+                  f"unreadable: no float64 gradient for {flat}", flush=True)
+            unreadable.append(SEED + first + i)
+            if any(v for v in flat.values()):
+                failed.append(SEED + first + i)
+            continue
         errs, faults = scone_verdict(card, cpu, ref)
         if faults:
-            fail(f"SCONE hold {i + 1} on a sound state: "
-                 f"{'; '.join(faults)}: {errs}")
+            # The first failing state is kept for replay_scone_step; the
+            # holds go on, so that the run counts every state.
+            print(f"[scone holds] hold {i + 1}/{n} FAILED on a sound state "
+                  f"(seed {SEED + first + i}): {'; '.join(faults)}: {errs}",
+                  flush=True)
+            if not failed:
+                save_scone_step(os.path.join(
+                    HELD_DIR, f"scone_hold_{SEED + first + i}.pt.gz"),
+                    state, card)
+            failed.append(SEED + first + i)
+            continue
         print_excused(tag, errs)
+        held.append(i)
         ref_gaps = ref["gaps"]
         for k in gaps:
             gaps[k].append(ref_gaps[k])
         print(f"[scone holds] hold {i + 1}/{n} (call {i % len(calls)}) "
               f"passed in {time.perf_counter() - t0:.1f} s: {errs}; gaps "
               f"by decade {gap_decades(ref_gaps)}", flush=True)
+    ran = len(held) + len(unreadable) + len(failed) - len(
+        set(unreadable) & set(failed))
+    print(f"[scone holds] {len(held)} of {ran} states held; unreadable (a "
+          f"network without a float64 gradient): {unreadable}; failed: "
+          f"{failed}", flush=True)
+    if failed:
+        fail(f"{len(failed)} of {ran} SCONE holds failed on sound states "
+             f"(seeds {failed})")
+    if not held:
+        fail("no state could be held")
     every = {k: torch.cat(v) for k, v in gaps.items()}
     largest = max(g for _, g in gap_summary(every).values())
-    print(f"[scone holds] {n} sound states: flips {gap_summary(every)}, by "
-          f"decade {gap_decades(every)}; the largest gap is "
-          f"{largest / TIE_REL:.3e} x TIE_REL ({TIE_REL:.3e})", flush=True)
+    print(f"[scone holds] {len(held)} sound states: flips "
+          f"{gap_summary(every)}, by decade {gap_decades(every)}; the "
+          f"largest gap is {largest / TIE_REL:.3e} x TIE_REL "
+          f"({TIE_REL:.3e})", flush=True)
 
-    state = scone_state(params, model, *calls[0],
-                        make_generator(dev, SEED + first))
+    # The planted faults on the first state held.
+    state = scone_state(params, model, *calls[held[0] % len(calls)],
+                        make_generator(dev, SEED + first + held[0]))
     step = scone_stepper(state)
     planted = {"pick": lambda: step(*RUNS[0], plant=planted_pick),
                "gradient": lambda: with_scaled_backward(step)}
     for name, card_run in planted.items():
         card = in_dtype(torch.float32, card_run)
-        ref = in_dtype(torch.float64, lambda: step(*RUNS[2], card["picks"],
-                                                    card["maxima"]))
-        cpu = in_dtype(torch.float32, lambda: step(*RUNS[1], card["picks"],
-                                                    card["maxima"]))
+        ref = in_dtype(torch.float64, lambda: step(
+            *RUNS[2], card["picks"], card["maxima"], views=card["views"]))
+        cpu = in_dtype(torch.float32, lambda: step(
+            *RUNS[1], card["picks"], card["maxima"], views=card["views"]))
         errs, faults = scone_verdict(card, cpu, ref)
         largest = float(ref["gaps"]["pool"].max()) if len(
             ref["gaps"]["pool"]) else 0.0
@@ -117,6 +159,18 @@ def phase_scone_holds(n, first=FIRST_SEED):
     if os.path.exists(saved):
         print(f"[scone holds] replaying the saved state {saved}", flush=True)
         replay_scone_step(load_scone_step(saved))
+
+
+def no_gradient(card, cpu, ref):
+    """The networks whose float64 gradient is zero everywhere, each with
+    the largest |g| of the card's and the CPU's float32 gradients (0.0
+    where they are zero too)."""
+    out = {}
+    for name in ("occ", "vis"):
+        if all(float(g.abs().max()) == 0.0 for g in ref[name].values()):
+            out[name] = max(float(g.abs().max()) for run in (card, cpu)
+                            for g in run[name].values())
+    return out
 
 
 def gap_decades(gaps):
@@ -208,10 +262,14 @@ if __name__ == "__main__":
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("n", type=int, help="the number of sound states")
+    parser.add_argument("--only", default=None, metavar="I,J,...",
+                        help="hold only these of the n states (0-based), "
+                        "each with the draws and call it has in the run of n")
     parser.add_argument("--first-seed", type=int, default=FIRST_SEED,
                         help="the seed offset of the first state's draws")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("CUDA is not available")
     phase_build()
-    phase_scone_holds(args.n, args.first_seed)
+    phase_scone_holds(args.n, args.first_seed, None if args.only is None
+                      else {int(i) for i in args.only.split(",")})

@@ -27,8 +27,9 @@
   handed the episodes of its memory.
 - The port's own: ``flush_to_disk`` holding one slot's host copies at a
   time, the disk ``Memory``'s ``depth_stack`` against the device one's,
-  and the device memory's fit on the card (``check_device_memory_fits``
-  on a scripted ``mem_get_info``, one rank or two sharing the card, and
+  and the device memory's placement on the card
+  (``check_device_memory_fits`` on a scripted ``mem_get_info``: all on
+  the card, a host tier, or a raise; one rank or two sharing the card;
   ``run_training`` stopping on it).
 """
 
@@ -409,14 +410,17 @@ GIB = 2 ** 30
 
 @pytest.mark.parametrize("free_gib", [41.0, 40.0])
 def test_device_memory_fit_check(monkeypatch, free_gib):
-    """check_device_memory_fits on a scripted card: the stores of every
-    (scene, slot) at the default config's widths (8 scenes x 5 slots of
-    403 frames, 43.28 GB) plus the headroom against the free bytes and the
-    allocator's cached ones; a run that does not fit raises naming
-    device_memory false, one that fits passes; off the card nothing is
-    asked. Two ranks sharing the card each need their stores and
-    headroom: the free bytes that hold one rank's do not hold two, and
-    twice those bytes (and 1 GiB) do only where they held one."""
+    """check_device_memory_fits on a scripted card and host: the stores of
+    every (scene, slot) at the default config's widths (8 scenes x 5
+    slots of 403 frames, 43.28 GB = 40.31 GiB) plus the headroom against
+    the free bytes and the allocator's cached ones: all on the card where
+    they fit; else one slot a scene on the card (8.06 GiB) and the rest
+    in host memory (32.25 GiB) where that fits; a run where even the one
+    slot a scene does not fit raises naming device_memory false; off the
+    card nothing is asked. Two ranks sharing the card each need their
+    stores and headroom: the free bytes that hold one rank's tier do not
+    hold two, and twice those bytes (and 1 GiB) hold two ranks' stores
+    where they held one rank's."""
     calls = []
     free = [free_gib]
 
@@ -429,49 +433,47 @@ def test_device_memory_fit_check(monkeypatch, free_gib):
                         lambda device=None: 3 * GIB)
     monkeypatch.setattr(torch.cuda, "memory_allocated",
                         lambda device=None: 1 * GIB)
+    monkeypatch.setattr(TM.mesh, "ranks_on_host", lambda: 1)
+    monkeypatch.setattr(TM, "host_memory_available", lambda: 64 * GIB)
     kw = dict(n_trajectories=5, max_frames=403, max_depths=403, height=256,
               width=456, zfar=750.0)
     paths = [f"s{i}" for i in range(8)]
     dm = mem.DeviceMemory(paths, device="cuda", **kw)
     assert dm.full_nbytes() == 40 * 1_082_064_672
     assert dm.nbytes() == 0
-    # 43.28 GB = 40.31 GiB of stores and 2 GiB of headroom: 41 GiB free
-    # and 2 cached hold them, 40 and 2 do not.
-    if free_gib == 41.0:
-        TM.check_device_memory_fits(dm, 2.0)
-    else:
-        with pytest.raises(RuntimeError, match='"device_memory": false'):
-            TM.check_device_memory_fits(dm, 2.0)
+    # 40.31 GiB of stores and 2 GiB of headroom: 41 GiB free and 2 cached
+    # hold them all, 40 and 2 hold one slot a scene (and the host the
+    # rest).
+    want = "card" if free_gib == 41.0 else "host tier"
+    assert TM.check_device_memory_fits(dm, 2.0) == want
+    # With 36 GiB of headroom not even one slot a scene fits.
     with pytest.raises(RuntimeError, match='"device_memory": false'):
         TM.check_device_memory_fits(dm, TM.DEVICE_MEMORY_HEADROOM_GIB)
     assert len(calls) == 2
-    TM.check_device_memory_fits(mem.DeviceMemory(paths, device="cpu", **kw),
-                                TM.DEVICE_MEMORY_HEADROOM_GIB)
+    assert TM.check_device_memory_fits(mem.DeviceMemory(
+        paths, device="cpu", **kw), TM.DEVICE_MEMORY_HEADROOM_GIB) == "card"
     assert len(calls) == 2
     monkeypatch.setattr(TM.mesh, "ranks_on_device", lambda: 2)
+    # 2 x (8.06 + 16) GiB do not fit 43 or 42 GiB.
     with pytest.raises(RuntimeError, match="each of the 2 ranks on the card"):
-        TM.check_device_memory_fits(dm, 2.0)
+        TM.check_device_memory_fits(dm, 16.0)
     free[0] = 2 * free_gib + 1
-    if free_gib == 41.0:
-        TM.check_device_memory_fits(dm, 2.0)
-    else:
-        with pytest.raises(RuntimeError, match="each of the 2 ranks"):
-            TM.check_device_memory_fits(dm, 2.0)
+    assert TM.check_device_memory_fits(dm, 2.0) == want
     assert len(calls) == 4
 
 
 def test_run_training_checks_fit(root, tmp_path, monkeypatch):
-    """run_training checks the device memory's fit, with the default
-    headroom, before it runs a trajectory; a run that does not fit stops
-    there."""
+    """run_training plans the device memory's placement, with the default
+    headroom, before it runs a trajectory; a run where even one slot a
+    scene does not fit stops there."""
     seen = []
 
     class DoesNotFit(Exception):
         pass
 
-    def check(memory, *args):
+    def check(memory, *args, **kw):
         seen.append((type(memory).__name__, memory.n_trajectories,
-                     memory.max_frames, args))
+                     memory.max_frames, args, kw))
         raise DoesNotFit
 
     def never(*a, **kw):
@@ -485,7 +487,7 @@ def test_run_training_checks_fit(root, tmp_path, monkeypatch):
                         memory_root=str(tmp_path / "mem"), device="cpu",
                         verbose=False)
     assert seen == [("DeviceMemory", DEVICE_TRAIN["n_memory_trajectories"],
-                     N_FRAMES, ())]
+                     N_FRAMES, (), {})]
 
 
 # ---------------------------------------------------------------------------

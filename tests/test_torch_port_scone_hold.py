@@ -197,3 +197,48 @@ def test_hold_refuses_a_planted_wrong_gradient(step):
                            for k, g in card["vis"].items()})
     _, faults = cs.scone_verdict(card, cpu, ref)
     assert "the vis gradient on the card" in faults[0]
+
+
+def test_view_picks():
+    """view_picks: a run's own view-space permutation recorded, a forced
+    one taken in its place, and each differing bin's gap the differing
+    angle's distance from the rounding boundary between the two bins,
+    relative to pi. A camera turned half an azimuth bin about the vertical
+    puts every direction on an azimuth boundary (a flip there is a
+    near-tie) and keeps the elevations at their bins' centres: a flip at a
+    positive elevation is half a bin from a jump (refused), one at a
+    negative elevation sits on a jump (the truncated and floored quotients
+    part at each multiple of the step there: a near-tie)."""
+    from macarons_tpu_torch.scene import runtime as scene_runtime
+
+    n_elev, n_azim = 7, 14
+    th = np.pi / n_azim
+    R = torch.tensor([[[np.cos(th), 0.0, -np.sin(th)], [0.0, 1.0, 0.0],
+                       [np.sin(th), 0.0, np.cos(th)]]], dtype=torch.float64)
+    cam = FoVCamera.create(R, torch.zeros((1, 3), dtype=torch.float64))
+    with cs.view_picks() as own:
+        perm = scene_runtime.view_space_permutation(cam, n_elev, n_azim)
+    assert len(own.picks) == 1 and torch.equal(own.picks[0], perm)
+    assert not own.gaps
+    # On the boundaries within the float32 rounding of the bins' own
+    # directions (the grid is float32 in either type).
+    elev, azim = cs.view_space_angles(cam, n_elev, n_azim)
+    step = 2 * np.pi / n_azim
+    assert float(((torch.remainder(azim, step) - step / 2).abs()).max()) \
+        < 1e-6
+    forced = perm.clone()
+    i0, i1, i2 = 3, 4 * n_azim + 5, 2 * n_azim + 6
+    assert float(elev[i1]) > 0 > float(elev[i2])
+    a = forced[i0] % n_azim
+    forced[i0] += (a + 1) % n_azim - a
+    for i in (i1, i2):
+        forced[i] = (forced[i] + n_azim) % (n_elev * n_azim)
+    with cs.view_picks([forced]) as vp:
+        got = scene_runtime.view_space_permutation(cam, n_elev, n_azim)
+    assert torch.equal(got, forced) and torch.equal(vp.picks[0], forced)
+    gaps = vp.gaps[0]
+    assert gaps.shape == (3,)
+    assert float(gaps[0]) < 1e-6 / np.pi and float(gaps[1]) < 1e-6 / np.pi
+    assert float(gaps[2]) == pytest.approx(1 / (2 * (n_elev + 1)), rel=1e-5)
+    over = cs.near_ties({"view": gaps})["view"]
+    assert over == [pytest.approx(1 / (2 * (n_elev + 1)), rel=1e-5)]
