@@ -1,0 +1,7 @@
+"""B3's share of its roofline over the traced steps, at (batch, 52, seq_len)."""
+
+from benchmark.metrics._read import roofline
+
+
+def read(run):
+    return roofline(run, "sh_bound_s", ("sh_visibility_kernel",))
